@@ -1,0 +1,95 @@
+"""Build and load the port's CUDA kernels.
+
+At first use, `nvcc` compiles every `csrc/*.cu` of this package into one
+shared library with a plain C interface, under `build/kernels/` at the
+root of the checkout, named by a hash of the sources and flags; later
+calls (and later processes) reuse it.  The library is loaded with ctypes.
+Nothing is fetched: the sources in the checkout are the whole input.
+
+    python -m achelous_tpu_torch.kernels.build     # build, print seconds
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+PKG_DIR = Path(__file__).resolve().parents[1]
+CSRC = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
+              "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+# name -> (argtypes, restype) of the C interface in csrc/deform.cu
+SIGNATURES = {
+    "achelous_fused_radarconv": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                  _I, _P], _I),
+    "achelous_deform_samples": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
+                                _I),
+    "achelous_cuda_error_string": ([_I], ctypes.c_char_p),
+}
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    path = Path(home) / "bin" / "nvcc"
+    if not path.exists():
+        raise FileNotFoundError("nvcc not found on PATH or in CUDA_HOME")
+    return str(path)
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"libachelous_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> float:
+    """Compile the library if it is not built yet; returns the seconds the
+    compile took (0.0 when it was already there)."""
+    lib = library_path()
+    if lib.exists():
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc()] + NVCC_FLAGS + ["-o", str(tmp)] + [str(s) for s in
+                                                       sources()]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    os.replace(tmp, lib)
+    return time.perf_counter() - t0
+
+
+@functools.lru_cache(maxsize=None)
+def load() -> ctypes.CDLL:
+    """The built library with every entry point's argtypes declared."""
+    build()
+    lib = ctypes.CDLL(str(library_path()))
+    for name, (argtypes, restype) in SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    return lib
+
+
+if __name__ == "__main__":
+    print(f"built {library_path()} in {build():.1f} s")

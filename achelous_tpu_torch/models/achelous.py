@@ -1,0 +1,125 @@
+"""Top-level Achelous assembly (counterpart of achelous_tpu/models/achelous.py).
+
+One forward produces, channels-first:
+  det:   3 scale maps [B, 4+1+num_det, Hs, Ws]   (strides 8/16/32)
+  sem:   [B, num_seg, R, R]  semantic seg logits
+  lane:  [B, 2, R, R]        waterline seg logits
+  pc:    [B, N, pc_classes]  point-cloud seg log-probs
+
+The module tree is the reference's (nets/Achelous.py, IREncoder.py):
+`image_radar_encoder` holds the neck (`fpn`, which holds the backbone), the
+radar encoder and the per-scale fusion; `det_head` and `pc_seg_model` sit
+beside it.  So `state_dict()` keys are the reference torch keys.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from achelous_tpu_torch.core.config import AchelousConfig, WIDTHS
+from achelous_tpu_torch.core.init import init_params
+from achelous_tpu_torch.models.edgenext import EDGENEXT_VARIANTS
+from achelous_tpu_torch.models.heads import DecoupleHead
+from achelous_tpu_torch.models.necks import DualFPN
+from achelous_tpu_torch.models.pointnet import PointNetSeg
+from achelous_tpu_torch.models.rcnet import RCNet
+from achelous_tpu_torch.ops.norm import BatchNorm
+from achelous_tpu_torch.ops.primitives import ECA
+
+STAGES = (3, 4, 5)
+
+
+class IRFusion(nn.Module):
+    """Per-scale image-radar fusion: ECA on each modality, channel concat
+    (C + C/4), BN + ReLU."""
+
+    def __init__(self, phi: str):
+        super().__init__()
+        w = WIDTHS[phi]
+        for i, stage in enumerate(STAGES):
+            c_img, c_rad = w[i + 1], w[i + 1] // 4
+            setattr(self, f"channel_attn_stage{stage}",
+                    nn.ModuleList([ECA(c_img), ECA(c_rad)]))
+            setattr(self, f"norm_stage{stage}", BatchNorm(c_img + c_rad))
+
+    def forward(self, img_feats: Sequence[torch.Tensor],
+                radar_feats: Sequence[torch.Tensor]):
+        fused = []
+        for stage, fi, fr in zip(STAGES, img_feats, radar_feats):
+            eca_img, eca_radar = getattr(self, f"channel_attn_stage{stage}")
+            x = torch.cat([eca_img(fi), eca_radar(fr)], dim=1)
+            fused.append(F.relu(getattr(self, f"norm_stage{stage}")(x)))
+        return tuple(fused)
+
+
+class IREncoder(IRFusion):
+    """Image branch (backbone + neck), radar branch (RCNet) and their
+    fusion; returns (fused P3/P4/P5, sem, lane)."""
+
+    def __init__(self, cfg: AchelousConfig):
+        super().__init__(cfg.phi)
+        self.fpn = DualFPN(cfg.num_seg, cfg.phi,
+                           backbone=EDGENEXT_VARIANTS[cfg.phi](
+                               in_chans=cfg.image_channels))
+        self.radar_encoder = RCNet(cfg.phi, band=cfg.deform_band,
+                                   in_channels=cfg.radar_channels)
+
+    def forward(self, image, radar_map):
+        sem, lane, (p5, p4, p3) = self.fpn(image)
+        fused = super().forward((p3, p4, p5), self.radar_encoder(radar_map))
+        return fused, sem, lane
+
+
+class Achelous(nn.Module):
+    def __init__(self, cfg: AchelousConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.image_radar_encoder = IREncoder(cfg)
+        self.det_head = DecoupleHead(cfg.num_det, cfg.det_in_channels,
+                                     nano_head=cfg.nano_head)
+        self.pc_seg_model = PointNetSeg(cfg.pc_classes, cfg.pc_channels)
+
+    def forward(self, image: torch.Tensor, radar_map: torch.Tensor,
+                point_cloud: torch.Tensor):
+        """image [B,3,R,R], radar_map [B,3,R,R], point_cloud [B,N,5] ->
+        (det, sem, lane, pc)."""
+        fused, sem, lane = self.image_radar_encoder(image, radar_map)
+        det = self.det_head(fused)
+        pc, _ = self.pc_seg_model(point_cloud)
+        return det, sem, lane, pc
+
+
+def cast_compute(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Cast every parameter to `dtype` except the BatchNorms', which stay
+    float32 (their affine is folded in float32, ops/norm.py)."""
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            continue
+        for p in m.parameters(recurse=False):
+            p.data = p.data.to(dtype)
+    return model
+
+
+def create_model(cfg: AchelousConfig, device: torch.device | str = "cpu",
+                 generator: Optional[torch.Generator] = None) -> Achelous:
+    """The model in eval mode on `device`, parameters drawn from
+    `generator` (seed 0 when None) as the JAX initializers draw them, then
+    cast to `cfg.dtype`."""
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    model = init_params(Achelous(cfg), generator)
+    return cast_compute(model.eval().requires_grad_(False).to(device),
+                        cfg.dtype)
+
+
+def example_inputs(cfg: AchelousConfig, batch: int = 1,
+                   device: torch.device | str = "cpu"):
+    """Zero-filled (image [B,3,R,R], radar [B,3,R,R], points [B,N,5])."""
+    r = cfg.resolution
+    kw = dict(dtype=cfg.dtype, device=device)
+    return (torch.zeros(batch, cfg.image_channels, r, r, **kw),
+            torch.zeros(batch, cfg.radar_channels, r, r, **kw),
+            torch.zeros(batch, cfg.pc_points, cfg.pc_channels, **kw))

@@ -1,0 +1,152 @@
+"""Wrappers of RCNet's two CUDA kernels (counterpart of
+achelous_tpu/ops/pallas_deform.py; sources in csrc/deform.cu).
+
+  K1  fused_radarconv  <- pallas_fused_radarconv        (RCNet blocks 0-3)
+  K2  deform_samples   <- pallas_deform_samples_cfio    (RCNet blocks 4-7)
+
+A tensor on the CPU goes to the plain PyTorch version in ops/deform.py.  A
+CUDA tensor goes to the kernel or the call raises: nothing falls back.
+Each wrapper counts its kernel launches in its `launches` attribute.
+
+The kernels take bf16 or float32 and compute in float32.  Outputs are
+allocated here; the kernels launch on the current stream and do not
+synchronise.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from achelous_tpu_torch.kernels import build
+
+FUSED_MAX_C = 8      # K1 keeps this many in/out channels in registers
+TAPS = 9
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _check_cuda(name: str, x: torch.Tensor, *others: torch.Tensor):
+    if x.device.type != "cuda":
+        raise ValueError(f"{name}: tensors must be on the CPU or a CUDA "
+                         f"device, got {x.device}")
+    if x.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: dtype {x.dtype} not supported "
+                        f"(float32 or bfloat16)")
+    for t in (x,) + others:
+        if t.device != x.device:
+            raise ValueError(f"{name}: all tensors must be on {x.device}, "
+                             f"got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+        if max(t.numel(), x.numel() * TAPS) >= 2 ** 31:
+            raise ValueError(f"{name}: tensors too large for 32-bit "
+                             f"indexing")
+
+
+def _raise_on(name: str, err: int):
+    if err != 0:
+        msg = build.load().achelous_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
+
+
+def fused_radarconv(x: torch.Tensor, w_off: torch.Tensor, b_off: torch.Tensor,
+                    w_mod: torch.Tensor, b_mod: torch.Tensor,
+                    weight: torch.Tensor, band: int) -> torch.Tensor:
+    """K1: a whole RadarConv.  x [B,C,H,W] raw; w_off [18,C,3,3], b_off
+    [18]; w_mod [9,C,3,3], b_mod [9]; weight [Cout,C,3,3]; integer band.
+    Returns [B,Cout,H,W] in x's dtype."""
+    if x.device.type == "cpu":
+        from achelous_tpu_torch.ops.deform import fused_radarconv_reference
+        return fused_radarconv_reference(x, w_off, b_off, w_mod, b_mod,
+                                         weight, band)
+    _check_cuda("fused_radarconv", x)
+    if x.dim() != 4:
+        raise ValueError(f"fused_radarconv: x must be [B,C,H,W], got "
+                         f"{tuple(x.shape)}")
+    b, c, h, w = x.shape
+    cout = weight.shape[0]
+    if not (1 <= c <= FUSED_MAX_C and 1 <= cout <= FUSED_MAX_C):
+        raise ValueError(f"fused_radarconv: channels in/out must be 1.."
+                         f"{FUSED_MAX_C}, got {c}/{cout}")
+    want = {"w_off": (w_off, (2 * TAPS, c, 3, 3)), "b_off": (b_off, (2 * TAPS,)),
+            "w_mod": (w_mod, (TAPS, c, 3, 3)), "b_mod": (b_mod, (TAPS,)),
+            "weight": (weight, (cout, c, 3, 3))}
+    for name, (t, shape) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"fused_radarconv: {name} must be {shape}, got "
+                             f"{tuple(t.shape)}")
+    if isinstance(band, bool) or not isinstance(band, int) or band < 0:
+        raise ValueError(f"fused_radarconv: band must be an int >= 0, got "
+                         f"{band!r}")
+    # [9C, 27] conv weights (18 offset then 9 modulator columns) and the
+    # [9C, Cout] projection, rows in tap-major (ky, kx, ci) order
+    wconv = torch.cat([w_off, w_mod]).float().permute(2, 3, 1, 0).reshape(
+        TAPS * c, 3 * TAPS).contiguous()
+    bconv = torch.cat([b_off, b_mod]).float().contiguous()
+    wproj = weight.float().permute(2, 3, 1, 0).reshape(
+        TAPS * c, cout).contiguous()
+    _check_cuda("fused_radarconv", x, wconv, bconv, wproj)
+    out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = build.load()
+    with torch.cuda.device(x.device):
+        err = lib.achelous_fused_radarconv(
+            _ptr(x), _ptr(wconv), _ptr(bconv), _ptr(wproj), _ptr(out),
+            b, c, cout, h, w, band, _DTYPE_CODE[x.dtype],
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    _raise_on("fused_radarconv", err)
+    fused_radarconv.launches += 1
+    return out
+
+
+def deform_samples(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                   band: Optional[int]) -> torch.Tensor:
+    """K2: modulated bilinear samples.  x [B,C,H,W], offset [B,18,H,W],
+    mask [B,9,H,W], all one dtype; band an int >= 0 or None (no clip).
+    Returns [B,9C,H,W] in x's dtype."""
+    if x.device.type == "cpu":
+        from achelous_tpu_torch.ops.deform import banded_deform_samples
+        return banded_deform_samples(x, offset, mask, band)
+    _check_cuda("deform_samples", x, offset, mask)
+    if x.dim() != 4:
+        raise ValueError(f"deform_samples: x must be [B,C,H,W], got "
+                         f"{tuple(x.shape)}")
+    b, c, h, w = x.shape
+    for name, t, ch in (("offset", offset, 2 * TAPS), ("mask", mask, TAPS)):
+        if tuple(t.shape) != (b, ch, h, w):
+            raise ValueError(f"deform_samples: {name} must be "
+                             f"{(b, ch, h, w)}, got {tuple(t.shape)}")
+        if t.dtype != x.dtype:
+            raise TypeError(f"deform_samples: {name} dtype {t.dtype} != "
+                            f"x dtype {x.dtype}")
+    if band is not None and (isinstance(band, bool)
+                             or not isinstance(band, int) or band < 0):
+        raise ValueError(f"deform_samples: band must be None or an int >= 0, "
+                         f"got {band!r}")
+    out = torch.empty((b, TAPS * c, h, w), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    lib = build.load()
+    with torch.cuda.device(x.device):
+        err = lib.achelous_deform_samples(
+            _ptr(x), _ptr(offset), _ptr(mask), _ptr(out), b, c, h, w,
+            -1 if band is None else band, _DTYPE_CODE[x.dtype],
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    _raise_on("deform_samples", err)
+    deform_samples.launches += 1
+    return out
+
+
+fused_radarconv.launches = 0
+deform_samples.launches = 0
+
+
+def reset_launch_counts():
+    fused_radarconv.launches = 0
+    deform_samples.launches = 0

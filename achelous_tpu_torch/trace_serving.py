@@ -1,0 +1,70 @@
+"""Where the serving path's time goes on the GPU.
+
+    python -m achelous_tpu_torch.trace_serving [--out DIR]
+
+Serves EN-GDF-PN-S0 requests (320x320, bf16, batch 1, random weights with
+non-zero deformable offsets) under torch.profiler and prints, per frame:
+wall time, the device's busy time (the sum of kernel times; the rest of
+the frame the device idles), kernel launches, and the kernels with the
+most device time.  The full table goes to DIR/serving_profile.txt
+(default traces/).  Needs a GPU.
+"""
+from __future__ import annotations
+
+import argparse
+import pathlib
+import time
+
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from achelous_tpu_torch.entry import entry, perturb_deform_convs
+
+FRAMES = 20
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--out", default="traces")
+    args = ap.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("trace_serving needs a CUDA device")
+    out = pathlib.Path(args.out)
+    out.mkdir(parents=True, exist_ok=True)
+
+    dev = torch.device("cuda", 0)
+    fn, _ = entry(dev, torch.Generator().manual_seed(0))
+    perturb_deform_convs(fn.model)
+    r = fn.cfg.resolution
+    q = (torch.rand(1, 3, r, r, device=dev, dtype=torch.bfloat16),
+         torch.rand(1, 3, r, r, device=dev, dtype=torch.bfloat16),
+         torch.rand(1, fn.cfg.pc_points, fn.cfg.pc_channels, device=dev,
+                    dtype=torch.bfloat16))
+    for _ in range(10):
+        fn(*q)
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(FRAMES):
+            fn(*q)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / FRAMES
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / FRAMES
+    launches = sum(e.count for e in rows) / FRAMES
+    table = prof.key_averages().table(sort_by="self_device_time_total",
+                                      row_limit=60)
+    (out / "serving_profile.txt").write_text(table)
+    print(f"per frame: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
+          f"({100 * busy_ms / wall_ms:.1f}%), {launches:.0f} kernels")
+    rows.sort(key=lambda e: -e.self_device_time_total)
+    for e in rows[:15]:
+        print(f"  {e.self_device_time_total / 1e3 / FRAMES:8.4f} ms "
+              f"{e.count / FRAMES:5.1f}x  {e.key[:90]}")
+
+
+if __name__ == "__main__":
+    main()

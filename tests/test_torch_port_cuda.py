@@ -1,0 +1,93 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on a GPU,
+at the shapes the serving path gives them (EN-GDF-PN-S0, 320x320, batch 1):
+
+  K1 fused_radarconv  RCNet blocks 0-3: C = 3 at 320^2, C = 8 at 160^2, 80^2
+  K2 deform_samples   RCNet blocks 4-7: C = 12 at 40^2, C = 24 at 20^2
+
+Every test is marked `cuda` and skips where no GPU is visible.  This file
+imports no JAX, so it also runs on a machine without it:
+
+    python -m pytest tests/test_torch_port_cuda.py -m cuda --noconftest
+"""
+import numpy as np
+import pytest
+import torch
+
+from achelous_tpu_torch.ops import deform, hopper_deform
+
+BAND = 4
+# float32 (TF32 off): other summation orders, ~1e-6 relative per value.
+# bf16: both compute in float32 and round the output once (2^-8 relative).
+TOL = {torch.float32: dict(rtol=1e-4, atol=1e-4),
+       torch.bfloat16: dict(rtol=1e-2, atol=1e-2)}
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    matmul, cudnn = (torch.backends.cuda.matmul.allow_tf32,
+                     torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    yield torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = matmul
+    torch.backends.cudnn.allow_tf32 = cudnn
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("off_w,off_b", [(0.0, 0.0), (0.5, 3.0), (2.0, 8.0)])
+@pytest.mark.parametrize("c,h", [(3, 320), (8, 160), (8, 80)])
+def test_k1_kernel_matches_plain(cuda_device, c, h, off_w, off_b, dtype):
+    rng = np.random.RandomState(c + h)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(cuda_device,
+                                                              dtype)
+
+    args = (t(rng.rand(1, c, h, h)), t(rng.randn(18, c, 3, 3) * off_w),
+            t(rng.randn(18) * off_b), t(rng.randn(9, c, 3, 3) * 0.3),
+            t(rng.randn(9) * 0.3), t(rng.randn(c, c, 3, 3) * 0.2))
+    before = hopper_deform.fused_radarconv.launches
+    got = hopper_deform.fused_radarconv(*args, BAND)
+    want = deform.fused_radarconv_reference(*args, BAND)
+    torch.cuda.synchronize()
+    assert hopper_deform.fused_radarconv.launches == before + 1
+    assert got.dtype == dtype and got.shape == (1, c, h, h)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("band", [BAND, None])
+@pytest.mark.parametrize("scale", [0.0, 0.7, 9.0])
+@pytest.mark.parametrize("c,h", [(12, 40), (24, 20)])
+def test_k2_kernel_matches_plain(cuda_device, c, h, scale, band, dtype):
+    rng = np.random.RandomState(c)
+    args = [torch.from_numpy(a.astype(np.float32)).to(cuda_device, dtype)
+            for a in (rng.randn(1, c, h, h),
+                      (rng.rand(1, 18, h, h) * 2 - 1) * scale,
+                      rng.rand(1, 9, h, h) * 2)]
+    before = hopper_deform.deform_samples.launches
+    got = hopper_deform.deform_samples(*args, band)
+    want = deform.banded_deform_samples(*args, band)
+    torch.cuda.synchronize()
+    assert hopper_deform.deform_samples.launches == before + 1
+    assert got.dtype == dtype and got.shape == (1, 9 * c, h, h)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def test_kernels_reject_what_they_do_not_take(cuda_device):
+    x = torch.zeros(1, 9, 16, 16, device=cuda_device)
+    w = torch.zeros(18, 9, 3, 3, device=cuda_device)
+    with pytest.raises(ValueError, match="channels"):
+        hopper_deform.fused_radarconv(
+            x, w, torch.zeros(18, device=cuda_device),
+            torch.zeros(9, 9, 3, 3, device=cuda_device),
+            torch.zeros(9, device=cuda_device),
+            torch.zeros(9, 9, 3, 3, device=cuda_device), BAND)
+    with pytest.raises(ValueError, match="contiguous"):
+        hopper_deform.deform_samples(
+            x.transpose(2, 3), torch.zeros(1, 18, 16, 16, device=cuda_device),
+            torch.zeros(1, 9, 16, 16, device=cuda_device), BAND)
