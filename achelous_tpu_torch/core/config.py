@@ -1,8 +1,9 @@
 """Model configuration (counterpart of achelous_tpu/core/config.py).
 
 One width table and one frozen dataclass that every module reads.  Only the
-axes the serving slice supports are accepted: EdgeNeXt backbone, the `gdf`
-neck and the PointNet point-cloud branch.
+axes the port supports are accepted: the EdgeNeXt (`en`) and
+EfficientFormerV2 (`ef`) backbones, the `gdf` neck, and the PointNet (`pn`)
+and PointNet++ (`pn2`) point-cloud branches.
 """
 from __future__ import annotations
 
@@ -19,9 +20,9 @@ WIDTHS: dict[str, Tuple[int, int, int, int]] = {
     "S0": (32, 48, 96, 176),
 }
 
-BACKBONES = ("en",)
+BACKBONES = ("en", "ef")
 NECKS = ("gdf",)
-PC_MODELS = ("pn",)
+PC_MODELS = ("pn", "pn2")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -79,3 +80,9 @@ class AchelousConfig:
         """Channels of the radar-fused P3/P4/P5 det features: width*5/4."""
         w = WIDTHS[self.phi]
         return (w[1] * 5 // 4, w[2] * 5 // 4, w[3] * 5 // 4)
+
+    @property
+    def name(self) -> str:
+        """The reference's naming convention, e.g. EF-GDF-PN-S0."""
+        return (f"{self.backbone.upper()}-{self.neck.upper()}-"
+                f"{self.pc_model.upper()}-{self.phi}")

@@ -1,6 +1,7 @@
 """Build and load the port's CUDA kernels.
 
-At first use, `nvcc` compiles every `csrc/*.cu` of this package into one
+At first use, `nvcc` compiles every `csrc/*.cu` of this package, one
+process a source, all started together, and links the objects into one
 shared library with a plain C interface, under `build/kernels/` at the
 root of the checkout, named by a hash of the sources and flags; later
 calls (and later processes) reuse it.  The library is loaded with ctypes.
@@ -23,16 +24,19 @@ PKG_DIR = Path(__file__).resolve().parents[1]
 CSRC = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC"]
+              "-std=c++17", "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-# name -> (argtypes, restype) of the C interface in csrc/deform.cu
+# name -> (argtypes, restype) of the C interface in csrc/*.cu
 SIGNATURES = {
     "achelous_fused_radarconv": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _I, _P], _I),
     "achelous_deform_samples": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
                                 _I),
+    "achelous_farthest_point_sample": ([_P, _P, _P, _I, _I, _I, _P], _I),
+    "achelous_bias_attention": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                                 _I, _I, _I, ctypes.c_float, _I, _P], _I),
     "achelous_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -66,16 +70,34 @@ def build() -> float:
     lib = library_path()
     if lib.exists():
         return 0.0
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc()] + NVCC_FLAGS + ["-o", str(tmp)] + [str(s) for s in
-                                                       sources()]
+    objs = BUILD_DIR / f"{lib.stem}.{os.getpid()}.objs"
+    objs.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
+    try:
+        compiles = []
+        for src in sources():
+            obj = objs / f"{src.stem}.o"
+            cmd = [nvcc()] + NVCC_FLAGS + ["-c", "-o", str(obj), str(src)]
+            compiles.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for cmd, proc in compiles:
+            out, _ = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"{' '.join(cmd)}\n{out}")
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        cmd = [nvcc(), "-shared", "-o", str(tmp)] + NVCC_FLAGS + sorted(
+            str(o) for o in objs.glob("*.o"))
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n"
+                               f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+        os.replace(tmp, lib)
+    finally:
+        shutil.rmtree(objs, ignore_errors=True)
     return time.perf_counter() - t0
 
 
@@ -89,6 +111,19 @@ def load() -> ctypes.CDLL:
         fn.argtypes = argtypes
         fn.restype = restype
     return lib
+
+
+def ptr(t) -> ctypes.c_void_p:
+    """A tensor's device pointer as a ctypes argument."""
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def raise_on(name: str, err: int):
+    """Raise if a launch returned a CUDA error (a refused launch never
+    runs, and a later synchronise does not report it)."""
+    if err != 0:
+        msg = load().achelous_cuda_error_string(err).decode()
+        raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
 
 
 if __name__ == "__main__":

@@ -9,7 +9,9 @@ One forward produces, channels-first:
 The module tree is the reference's (nets/Achelous.py, IREncoder.py):
 `image_radar_encoder` holds the neck (`fpn`, which holds the backbone), the
 radar encoder and the per-scale fusion; `det_head` and `pc_seg_model` sit
-beside it.  So `state_dict()` keys are the reference torch keys.
+beside it.  So `state_dict()` keys are the reference torch keys.  The
+backbone is EdgeNeXt (`en`) or EfficientFormerV2 (`ef`); the point-cloud
+branch PointNet (`pn`) or PointNet++ (`pn2`).
 """
 from __future__ import annotations
 
@@ -22,14 +24,24 @@ from torch import nn
 from achelous_tpu_torch.core.config import AchelousConfig, WIDTHS
 from achelous_tpu_torch.core.init import init_params
 from achelous_tpu_torch.models.edgenext import EDGENEXT_VARIANTS
+from achelous_tpu_torch.models.efficientformer import EfficientFormerV2
 from achelous_tpu_torch.models.heads import DecoupleHead
 from achelous_tpu_torch.models.necks import DualFPN
 from achelous_tpu_torch.models.pointnet import PointNetSeg
+from achelous_tpu_torch.models.pointnet2 import PointNet2Seg
 from achelous_tpu_torch.models.rcnet import RCNet
 from achelous_tpu_torch.ops.norm import BatchNorm
 from achelous_tpu_torch.ops.primitives import ECA
 
 STAGES = (3, 4, 5)
+
+
+def make_backbone(cfg: AchelousConfig) -> nn.Module:
+    """The vision backbone named by `cfg.backbone` (`en` or `ef`)."""
+    if cfg.backbone == "ef":
+        return EfficientFormerV2(cfg.phi, cfg.resolution,
+                                 in_chans=cfg.image_channels)
+    return EDGENEXT_VARIANTS[cfg.phi](in_chans=cfg.image_channels)
 
 
 class IRFusion(nn.Module):
@@ -61,9 +73,7 @@ class IREncoder(IRFusion):
 
     def __init__(self, cfg: AchelousConfig):
         super().__init__(cfg.phi)
-        self.fpn = DualFPN(cfg.num_seg, cfg.phi,
-                           backbone=EDGENEXT_VARIANTS[cfg.phi](
-                               in_chans=cfg.image_channels))
+        self.fpn = DualFPN(cfg.num_seg, cfg.phi, backbone=make_backbone(cfg))
         self.radar_encoder = RCNet(cfg.phi, band=cfg.deform_band,
                                    in_channels=cfg.radar_channels)
 
@@ -80,7 +90,8 @@ class Achelous(nn.Module):
         self.image_radar_encoder = IREncoder(cfg)
         self.det_head = DecoupleHead(cfg.num_det, cfg.det_in_channels,
                                      nano_head=cfg.nano_head)
-        self.pc_seg_model = PointNetSeg(cfg.pc_classes, cfg.pc_channels)
+        pc_model = PointNet2Seg if cfg.pc_model == "pn2" else PointNetSeg
+        self.pc_seg_model = pc_model(cfg.pc_classes, cfg.pc_channels)
 
     def forward(self, image: torch.Tensor, radar_map: torch.Tensor,
                 point_cloud: torch.Tensor):
@@ -103,11 +114,21 @@ def cast_compute(model: nn.Module, dtype: torch.dtype) -> nn.Module:
     return model
 
 
-def create_model(cfg: AchelousConfig, device: torch.device | str = "cpu",
+def _device(device: torch.device | str) -> torch.device:
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is visible; pass device='cpu' to "
+                           "run on the CPU")
+    return device
+
+
+def create_model(cfg: AchelousConfig,
+                 device: torch.device | str = torch.device("cuda"),
                  generator: Optional[torch.Generator] = None) -> Achelous:
-    """The model in eval mode on `device`, parameters drawn from
-    `generator` (seed 0 when None) as the JAX initializers draw them, then
-    cast to `cfg.dtype`."""
+    """The model in eval mode on `device` (the GPU unless the CPU is asked
+    for), parameters drawn from `generator` (seed 0 when None) as the JAX
+    initializers draw them, then cast to `cfg.dtype`."""
+    device = _device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     model = init_params(Achelous(cfg), generator)
@@ -116,10 +137,11 @@ def create_model(cfg: AchelousConfig, device: torch.device | str = "cpu",
 
 
 def example_inputs(cfg: AchelousConfig, batch: int = 1,
-                   device: torch.device | str = "cpu"):
-    """Zero-filled (image [B,3,R,R], radar [B,3,R,R], points [B,N,5])."""
+                   device: torch.device | str = torch.device("cuda")):
+    """Zero-filled (image [B,3,R,R], radar [B,3,R,R], points [B,N,5]) on
+    `device` (the GPU unless the CPU is asked for)."""
     r = cfg.resolution
-    kw = dict(dtype=cfg.dtype, device=device)
+    kw = dict(dtype=cfg.dtype, device=_device(device))
     return (torch.zeros(batch, cfg.image_channels, r, r, **kw),
             torch.zeros(batch, cfg.radar_channels, r, r, **kw),
             torch.zeros(batch, cfg.pc_points, cfg.pc_channels, **kw))

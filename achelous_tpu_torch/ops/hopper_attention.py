@@ -1,0 +1,88 @@
+"""Wrapper of the fused bias-attention CUDA kernel (counterpart of
+achelous_tpu/ops/pallas_attention.py; source in csrc/attention.cu).
+
+  K3  fused_bias_attention  <- fused_bias_attention
+                               (EfficientFormerV2 Attention4D, 4 a frame)
+
+A tensor on the CPU goes to the plain PyTorch version in ops/attention.py.
+A CUDA tensor goes to the kernel or the call raises: nothing falls back.
+The wrapper counts its kernel launches in its `launches` attribute.
+
+All inputs share one dtype, float32 or bf16 (the caller rounds the bias
+table and the head mixes to the compute dtype first, as the JAX package
+does); the kernel computes in float32 and returns that dtype.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from achelous_tpu_torch.kernels import build
+
+MAX_HEADS = 8         # the head mixes keep one value per head in registers
+MAX_KEY_DIM = 64      # a key row is held in registers
+MAX_TOKENS = 4096     # one query row's logits, all heads, in shared memory
+MAX_VALUE_DIM = 1024  # at least 16 keys of v staged in shared memory
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def fused_bias_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         bias: torch.Tensor, th1_w: torch.Tensor,
+                         th1_b: torch.Tensor, th2_w: torch.Tensor,
+                         th2_b: torch.Tensor, scale: float) -> torch.Tensor:
+    """K3.  q, k [B,h,N,dk]; v [B,h,N,dv]; bias [h,N,N]; th*_w [h,h] as
+    [g_out, h_in]; th*_b [h].  Returns [B,h,N,dv] in q's dtype."""
+    args = (q, k, v, bias, th1_w, th1_b, th2_w, th2_b)
+    if q.device.type == "cpu":
+        from achelous_tpu_torch.ops.attention import reference_bias_attention
+        return reference_bias_attention(*args, scale)
+    name = "fused_bias_attention"
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: tensors must be on the CPU or a CUDA "
+                         f"device, got {q.device}")
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(f"{name}: dtype {q.dtype} not supported (float32 or "
+                        f"bfloat16)")
+    if q.dim() != 4:
+        raise ValueError(f"{name}: q must be [B,h,N,dk], got "
+                         f"{tuple(q.shape)}")
+    b, h, n, dk = q.shape
+    dv = v.shape[-1] if v.dim() == 4 else -1
+    want = {"k": (b, h, n, dk), "v": (b, h, n, dv), "bias": (h, n, n),
+            "th1_w": (h, h), "th1_b": (h,), "th2_w": (h, h), "th2_b": (h,)}
+    for key, t in zip(want, args[1:]):
+        if tuple(t.shape) != want[key]:
+            raise ValueError(f"{name}: {key} must be {want[key]}, got "
+                             f"{tuple(t.shape)}")
+    for t in args:
+        if t.device != q.device:
+            raise ValueError(f"{name}: all tensors must be on {q.device}, got "
+                             f"{t.device}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name}: all tensors must be {q.dtype}, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: tensors must be contiguous")
+    if not (1 <= h <= MAX_HEADS and 1 <= dk <= MAX_KEY_DIM
+            and 1 <= n <= MAX_TOKENS and 1 <= dv <= MAX_VALUE_DIM):
+        raise ValueError(f"{name}: needs 1 <= h <= {MAX_HEADS}, 1 <= dk <= "
+                         f"{MAX_KEY_DIM}, 1 <= N <= {MAX_TOKENS}, 1 <= dv <= "
+                         f"{MAX_VALUE_DIM}; got h={h}, dk={dk}, N={n}, dv={dv}")
+    if max(q.numel(), v.numel(), bias.numel()) >= 2 ** 31:
+        raise ValueError(f"{name}: tensors too large for 32-bit indexing")
+    out = torch.empty((b, h, n, dv), dtype=q.dtype, device=q.device)
+    if out.numel() == 0:
+        return out
+    lib = build.load()
+    with torch.cuda.device(q.device):
+        err = lib.achelous_bias_attention(
+            *(build.ptr(t) for t in args), build.ptr(out), b, h, n, dk, dv,
+            float(scale), _DTYPE_CODE[q.dtype],
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    build.raise_on(name, err)
+    fused_bias_attention.launches += 1
+    return out
+
+
+fused_bias_attention.launches = 0

@@ -26,10 +26,6 @@ TAPS = 9
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
 def _check_cuda(name: str, x: torch.Tensor, *others: torch.Tensor):
     if x.device.type != "cuda":
         raise ValueError(f"{name}: tensors must be on the CPU or a CUDA "
@@ -46,12 +42,6 @@ def _check_cuda(name: str, x: torch.Tensor, *others: torch.Tensor):
         if max(t.numel(), x.numel() * TAPS) >= 2 ** 31:
             raise ValueError(f"{name}: tensors too large for 32-bit "
                              f"indexing")
-
-
-def _raise_on(name: str, err: int):
-    if err != 0:
-        msg = build.load().achelous_cuda_error_string(err).decode()
-        raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
 
 
 def fused_radarconv(x: torch.Tensor, w_off: torch.Tensor, b_off: torch.Tensor,
@@ -97,10 +87,11 @@ def fused_radarconv(x: torch.Tensor, w_off: torch.Tensor, b_off: torch.Tensor,
     lib = build.load()
     with torch.cuda.device(x.device):
         err = lib.achelous_fused_radarconv(
-            _ptr(x), _ptr(wconv), _ptr(bconv), _ptr(wproj), _ptr(out),
+            build.ptr(x), build.ptr(wconv), build.ptr(bconv),
+            build.ptr(wproj), build.ptr(out),
             b, c, cout, h, w, band, _DTYPE_CODE[x.dtype],
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    _raise_on("fused_radarconv", err)
+    build.raise_on("fused_radarconv", err)
     fused_radarconv.launches += 1
     return out
 
@@ -135,10 +126,11 @@ def deform_samples(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     lib = build.load()
     with torch.cuda.device(x.device):
         err = lib.achelous_deform_samples(
-            _ptr(x), _ptr(offset), _ptr(mask), _ptr(out), b, c, h, w,
+            build.ptr(x), build.ptr(offset), build.ptr(mask), build.ptr(out),
+            b, c, h, w,
             -1 if band is None else band, _DTYPE_CODE[x.dtype],
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-    _raise_on("deform_samples", err)
+    build.raise_on("deform_samples", err)
     deform_samples.launches += 1
     return out
 

@@ -1,0 +1,82 @@
+"""Wrapper of the farthest-point-sampling CUDA kernel (counterpart of
+achelous_tpu/ops/pallas_pointops.py; source in csrc/pointops.cu).
+
+  K4  farthest_point_sample  <- pallas_farthest_point_sample
+                                (PointNet++ set abstraction, 4 a frame)
+
+A tensor on the CPU goes to the plain PyTorch version in ops/pointops.py.
+A CUDA tensor goes to the kernel or the call raises: nothing falls back.
+The wrapper counts its kernel launches in its `launches` attribute.
+
+The kernel takes float32 xyz (the PointNet++ branch keeps xyz in float32
+whatever the compute dtype) and returns int64 indices with exactly the
+plain version's values.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from achelous_tpu_torch.kernels import build
+
+# xyz and distances of one batch element live in shared memory: 16 bytes
+# a point, under the 227 KB a block can opt into
+FPS_MAX_POINTS = 12288
+
+
+def farthest_point_sample(xyz: torch.Tensor, npoint: int,
+                          valid: Optional[torch.Tensor] = None
+                          ) -> torch.Tensor:
+    """K4: FPS indices [B, npoint] (int64) over xyz [B, N, 3] float32,
+    with an optional bool mask `valid` [B, N]."""
+    if xyz.device.type == "cpu":
+        from achelous_tpu_torch.ops.pointops import \
+            farthest_point_sample as plain
+        return plain(xyz, npoint, valid)
+    if xyz.device.type != "cuda":
+        raise ValueError(f"farthest_point_sample: tensors must be on the CPU "
+                         f"or a CUDA device, got {xyz.device}")
+    if xyz.dtype != torch.float32:
+        raise TypeError(f"farthest_point_sample: xyz must be float32, got "
+                        f"{xyz.dtype}")
+    if xyz.dim() != 3 or xyz.shape[2] != 3:
+        raise ValueError(f"farthest_point_sample: xyz must be [B,N,3], got "
+                         f"{tuple(xyz.shape)}")
+    b, n, _ = xyz.shape
+    if not 1 <= n <= FPS_MAX_POINTS:
+        raise ValueError(f"farthest_point_sample: N must be 1..{FPS_MAX_POINTS}"
+                         f", got {n}")
+    if isinstance(npoint, bool) or not isinstance(npoint, int) or npoint < 0:
+        raise ValueError(f"farthest_point_sample: npoint must be an int >= 0, "
+                         f"got {npoint!r}")
+    tensors = [xyz]
+    if valid is not None:
+        if valid.dtype != torch.bool or tuple(valid.shape) != (b, n):
+            raise ValueError(f"farthest_point_sample: valid must be a bool "
+                             f"[{b},{n}] tensor, got {valid.dtype} "
+                             f"{tuple(valid.shape)}")
+        tensors.append(valid)
+    for t in tensors:
+        if t.device != xyz.device:
+            raise ValueError(f"farthest_point_sample: all tensors must be on "
+                             f"{xyz.device}, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError("farthest_point_sample: tensors must be "
+                             "contiguous")
+    out = torch.empty((b, npoint), dtype=torch.int64, device=xyz.device)
+    if out.numel() == 0:
+        return out
+    lib = build.load()
+    with torch.cuda.device(xyz.device):
+        err = lib.achelous_farthest_point_sample(
+            build.ptr(xyz), None if valid is None else build.ptr(valid),
+            build.ptr(out), b, n, npoint,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+    build.raise_on("farthest_point_sample", err)
+    farthest_point_sample.launches += 1
+    return out
+
+
+farthest_point_sample.launches = 0

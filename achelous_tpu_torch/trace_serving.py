@@ -1,13 +1,16 @@
 """Where the serving path's time goes on the GPU.
 
-    python -m achelous_tpu_torch.trace_serving [--out DIR]
+    python -m achelous_tpu_torch.trace_serving [--backbone en|ef]
+        [--pc_model pn|pn2] [--out DIR]
 
-Serves EN-GDF-PN-S0 requests (320x320, bf16, batch 1, random weights with
-non-zero deformable offsets) under torch.profiler and prints, per frame:
+Serves requests of one path (default EN-GDF-PN-S0; 320x320, bf16, batch 1,
+random weights with non-zero deformable offsets and, for `ef`, drawn
+layer scales, bias tables and talking heads) under torch.profiler and
+prints, per frame:
 wall time, the device's busy time (the sum of kernel times; the rest of
 the frame the device idles), kernel launches, and the kernels with the
 most device time.  The full table goes to DIR/serving_profile.txt
-(default traces/).  Needs a GPU.
+(default traces/), named after the path.  Needs a GPU.
 """
 from __future__ import annotations
 
@@ -18,13 +21,16 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-from achelous_tpu_torch.entry import entry, perturb_deform_convs
+from achelous_tpu_torch.entry import (entry, perturb_attention,
+                                      perturb_deform_convs)
 
 FRAMES = 20
 
 
 def main():
     ap = argparse.ArgumentParser()
+    ap.add_argument("--backbone", default="en", choices=("en", "ef"))
+    ap.add_argument("--pc_model", default="pn", choices=("pn", "pn2"))
     ap.add_argument("--out", default="traces")
     args = ap.parse_args()
     if not torch.cuda.is_available():
@@ -33,8 +39,10 @@ def main():
     out.mkdir(parents=True, exist_ok=True)
 
     dev = torch.device("cuda", 0)
-    fn, _ = entry(dev, torch.Generator().manual_seed(0))
+    fn, _ = entry(dev, torch.Generator().manual_seed(0), args.backbone,
+                  args.pc_model)
     perturb_deform_convs(fn.model)
+    perturb_attention(fn.model)
     r = fn.cfg.resolution
     q = (torch.rand(1, 3, r, r, device=dev, dtype=torch.bfloat16),
          torch.rand(1, 3, r, r, device=dev, dtype=torch.bfloat16),
@@ -57,9 +65,10 @@ def main():
     launches = sum(e.count for e in rows) / FRAMES
     table = prof.key_averages().table(sort_by="self_device_time_total",
                                       row_limit=60)
-    (out / "serving_profile.txt").write_text(table)
-    print(f"per frame: wall {wall_ms:.3f} ms, device busy {busy_ms:.3f} ms "
-          f"({100 * busy_ms / wall_ms:.1f}%), {launches:.0f} kernels")
+    (out / f"serving_profile_{fn.cfg.name}.txt").write_text(table)
+    print(f"{fn.cfg.name} per frame: wall {wall_ms:.3f} ms, device busy "
+          f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
+          f"{launches:.0f} kernels")
     rows.sort(key=lambda e: -e.self_device_time_total)
     for e in rows[:15]:
         print(f"  {e.self_device_time_total / 1e3 / FRAMES:8.4f} ms "

@@ -1,8 +1,12 @@
 """The port's CUDA kernels against their plain PyTorch versions, on a GPU,
-at the shapes the serving path gives them (EN-GDF-PN-S0, 320x320, batch 1):
+at the shapes the serving paths give them (320x320, batch 1):
 
-  K1 fused_radarconv  RCNet blocks 0-3: C = 3 at 320^2, C = 8 at 160^2, 80^2
-  K2 deform_samples   RCNet blocks 4-7: C = 12 at 40^2, C = 24 at 20^2
+  K1 fused_radarconv       RCNet blocks 0-3: C = 3 at 320^2, C = 8 at 160^2, 80^2
+  K2 deform_samples        RCNet blocks 4-7: C = 12 at 40^2, C = 24 at 20^2
+  K3 fused_bias_attention  EfficientFormerV2 Attention4D: h = 8, N = 100,
+                           dk = 32, dv = 128 (and N = 16 at batch 2)
+  K4 farthest_point_sample PointNet++: 512 -> 128 -> 32 -> 8 -> 4 points,
+                           indices exactly equal
 
 Every test is marked `cuda` and skips where no GPU is visible.  This file
 imports no JAX, so it also runs on a machine without it:
@@ -13,7 +17,8 @@ import numpy as np
 import pytest
 import torch
 
-from achelous_tpu_torch.ops import deform, hopper_deform
+from achelous_tpu_torch.ops import (attention, deform, hopper_attention,
+                                    hopper_deform, hopper_pointops, pointops)
 
 BAND = 4
 # float32 (TF32 off): other summation orders, ~1e-6 relative per value.
@@ -91,3 +96,73 @@ def test_kernels_reject_what_they_do_not_take(cuda_device):
         hopper_deform.deform_samples(
             x.transpose(2, 3), torch.zeros(1, 18, 16, 16, device=cuda_device),
             torch.zeros(1, 9, 16, 16, device=cuda_device), BAND)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n", [(1, 100), (2, 16)])
+def test_k3_kernel_matches_plain(cuda_device, b, n, dtype):
+    rng = np.random.RandomState(n)
+    h = 8
+    shapes = ((b, h, n, 32), (b, h, n, 32), (b, h, n, 128), (h, n, n),
+              (h, h), (h,), (h, h), (h,))
+    args = [torch.from_numpy((rng.randn(*s) * 0.5).astype(np.float32)).to(
+        cuda_device, dtype) for s in shapes]
+    assert not torch.equal(args[4], args[4].T)     # non-symmetric head mix
+    before = hopper_attention.fused_bias_attention.launches
+    got = hopper_attention.fused_bias_attention(*args, 32 ** -0.5)
+    want = attention.reference_bias_attention(*args, 32 ** -0.5)
+    torch.cuda.synchronize()
+    assert hopper_attention.fused_bias_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, h, n, 128)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+def fps_cases():
+    """(name, xyz [B,N,3], npoint, valid): the serving shapes on random
+    points, then resampled duplicates, a valid mask, identical points."""
+    rng = np.random.RandomState(0)
+    cases = [(f"random_{n}_{s}", rng.rand(1, n, 3), s, None)
+             for n, s in ((512, 128), (128, 32), (32, 8), (8, 4))]
+    base = np.round(rng.rand(60, 3) * 16) / 16
+    cases.append(("resampled", base[rng.randint(0, 60, (1, 512))], 128, None))
+    cases.append(("valid", rng.randn(2, 512, 3), 128, rng.rand(2, 512) > 0.3))
+    cases.append(("identical", np.ones((1, 32, 3)), 8, None))
+    return cases
+
+
+@pytest.mark.parametrize("case", range(7))
+def test_k4_kernel_indices_equal_plain(cuda_device, case):
+    name, xyz, npoint, valid = fps_cases()[case]
+    x = torch.from_numpy(xyz.astype(np.float32)).to(cuda_device)
+    v = None if valid is None else torch.from_numpy(valid).to(cuda_device)
+    before = hopper_pointops.farthest_point_sample.launches
+    got = hopper_pointops.farthest_point_sample(x, npoint, v)
+    want = pointops.farthest_point_sample(x, npoint, v)
+    torch.cuda.synchronize()
+    assert hopper_pointops.farthest_point_sample.launches == before + 1
+    assert got.dtype == torch.int64 and got.shape == (x.shape[0], npoint)
+    assert torch.equal(got, want), name
+
+
+def test_k3_k4_reject_what_they_do_not_take(cuda_device):
+    q = torch.zeros(1, 9, 16, 32, device=cuda_device)
+    v = torch.zeros(1, 9, 16, 128, device=cuda_device)
+    mix = (torch.zeros(9, 9, device=cuda_device),
+           torch.zeros(9, device=cuda_device)) * 2
+    with pytest.raises(ValueError, match="h <= 8"):
+        hopper_attention.fused_bias_attention(
+            q, q, v, torch.zeros(9, 16, 16, device=cuda_device), *mix, 0.1)
+    q8 = torch.zeros(1, 8, 16, 32, device=cuda_device)
+    with pytest.raises(TypeError, match="must be torch.float32"):
+        hopper_attention.fused_bias_attention(
+            q8, q8, torch.zeros(1, 8, 16, 128, device=cuda_device),
+            torch.zeros(8, 16, 16, device=cuda_device, dtype=torch.bfloat16),
+            *((torch.zeros(8, 8, device=cuda_device),
+               torch.zeros(8, device=cuda_device)) * 2), 0.1)
+    with pytest.raises(TypeError, match="float32"):
+        hopper_pointops.farthest_point_sample(
+            torch.zeros(1, 64, 3, device=cuda_device, dtype=torch.bfloat16), 8)
+    with pytest.raises(ValueError, match="valid"):
+        hopper_pointops.farthest_point_sample(
+            torch.zeros(1, 64, 3, device=cuda_device), 8,
+            torch.ones(1, 64, device=cuda_device))

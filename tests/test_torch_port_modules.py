@@ -62,7 +62,7 @@ def test_config_matches_jax():
     for f in ("num_det", "num_seg", "pc_classes", "phi", "backbone", "neck",
               "pc_model", "nano_head", "resolution",
               "image_channels", "radar_channels", "pc_channels", "pc_points",
-              "deform_band", "det_in_channels"):
+              "deform_band", "det_in_channels", "name"):
         assert getattr(port, f) == getattr(ref, f), f
     assert port.deform_band == 4 and port.dtype == torch.float32
 

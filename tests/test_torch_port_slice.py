@@ -23,7 +23,7 @@ from achelous_tpu.ops.postprocess import decode_outputs as jax_decode
 from achelous_tpu.ops.postprocess import non_max_suppression as jax_nms
 from achelous_tpu.utils.torch_import import achelous_mapping, transplant
 
-from achelous_tpu_torch.entry import serving_config
+from achelous_tpu_torch.entry import entry, serving_config
 from achelous_tpu_torch.models.achelous import create_model
 from achelous_tpu_torch.ops.postprocess import (decode_outputs,
                                                 non_max_suppression)
@@ -83,7 +83,7 @@ def slice_run():
     jdets = jax_nms(jdec, jcfg.num_det, CONF, NMS)
 
     cfg = serving_config(torch.float32, RES)
-    model = create_model(cfg)
+    model = create_model(cfg, "cpu")
     sd = state_dict_from_jax(variables, achelous_mapping("S0", "en", "gdf"),
                              model.state_dict())
     model.load_state_dict({k: torch.from_numpy(v) for k, v in sd.items()})
@@ -151,6 +151,23 @@ def test_weight_bridge_round_trip(slice_run):
     for path, w in want:
         np.testing.assert_array_equal(got[path], w,
                                       err_msg=jax.tree_util.keystr(path))
+
+
+def test_entry_points_default_to_the_gpu():
+    """Without a visible GPU the default device raises; the CPU runs only
+    when asked for."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is visible")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry()
+    cfg = serving_config(torch.float32, RES)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        create_model(cfg)
+    _, inputs = entry("cpu", backbone="ef", pc_model="pn2")
+    assert all(x.device.type == "cpu" for x in inputs)
+    assert {serving_config(backbone=b, pc_model=p).name
+            for b, p in (("en", "pn"), ("en", "pn2"), ("ef", "pn"))} == {
+                "EN-GDF-PN-S0", "EN-GDF-PN2-S0", "EF-GDF-PN-S0"}
 
 
 def _imports(path):
