@@ -16,16 +16,39 @@
 //   with only the raw input and the Cout planes in device memory.
 //   Bound: at batch 1 nothing here is large.  RCNet block 0 (C = 3 at
 //   320^2) moves about 1.2 MB of bf16 (0.6 MB in, 0.6 MB out) for roughly
-//   0.2 GFLOP, microseconds of bandwidth or math on an H100, so launch and
-//   latency bound it.  Design: one launch per RadarConv, which removes the
-//   pool, the two convs, the samples tensor and the projection as separate
-//   launches and round trips.  A 16x16 block stages the pooled tile with a
-//   halo of band+2 in shared memory (the raw tile is not kept: each pooled
-//   value reads its 9 raw inputs through L1), holds the conv and projection
-//   weights in shared memory, and each thread keeps its pixel's 27
-//   offset/modulator values and Cout <= 8 accumulators in registers.
-//   At band 4, C = 8: 25 KB pooled tile + 10 KB weights, under the 48 KB a
-//   block gets without opting in (larger bands opt in below).
+//   0.2 GFLOP, microseconds of bandwidth or math on an H100, so latency
+//   and the number of warps in flight bound it.
+//   Design:
+//   - One launch a call.  The weights come packed by the caller
+//     (ops/hopper_deform.py pack_radarconv_weights, cached by the module):
+//     for each tap, its three conv outputs (dy, dx, modulator) over the 9C
+//     inputs as a float4 row, so a thread reads them with one broadcast
+//     128-bit shared load an input.
+//   - Square output tiles; 9 / k threads a pixel, each with k taps of it
+//     (k = 1, 3 or 9).  A tap needs only its own three conv outputs, so
+//     the 27-output conv splits by taps with no recompute, and a pooled
+//     value read once feeds 3k accumulators.  The launch takes the largest
+//     tile and k that still put ~16 warps on each of the 132 SMs: 16x16
+//     tiles with k = 9 at 320^2 (400 blocks of 8 warps; the larger tile
+//     pools less halo), 8x8 with k = 3 at 160^2 (400 of 6), 8x8 with k = 1
+//     at 80^2 (100 of 18).
+//     Taps are uniform across a warp, so every weight read is a broadcast;
+//     each thread samples its taps for the C channels and forms its Cout
+//     projection partials, which meet in shared memory and are summed in
+//     tap order.  Channel loops are unrolled to the cap of 8 and guarded.
+//   - The raw tile with a halo of band + 3 is staged in shared memory by
+//     16-byte cp.async copies, its column window widened to 16-byte
+//     boundaries (chunks outside the image are zero-filled by plain
+//     stores; a width or base address that breaks the alignment takes
+//     scalar loads instead).  The 3x3 pool is separable in shared memory:
+//     3-tap row sums, then 3-tap column sums over 9.
+//   - The conv runs as float32 FMAs for both input types: its inputs are
+//     the pooled values, which are not bf16-exact, so tensor cores would
+//     need a hi/lo split for either dtype.  At block 0 its 149 M FMAs take
+//     ~4.5 us of the card's float32 rate: the floor of this design there.
+//   At band 4, C = 8: 12.8 KB pooled tile, 8.4 KB raw tile (bf16), 14 KB
+//   row sums (reused for the partials) and 12.8 KB weights: ~48 KB, above
+//   the default 48 KB, so the launch opts in to what it needs.
 //
 // K2 deform_samples_kernel
 //   Replaces achelous_tpu/ops/pallas_deform.py `pallas_deform_samples_cfio`
@@ -48,11 +71,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "phase_clock.cuh"
+
 namespace {
 
 constexpr int kTaps = 9;
 constexpr int kMaxC = 8;       // K1 channel cap, in and out
-constexpr int kTile = 16;      // K1 output tile edge
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
 __device__ __forceinline__ float load_f32(const __nv_bfloat16* p) {
@@ -107,127 +131,299 @@ deform_samples_kernel(const T* __restrict__ x, const T* __restrict__ off,
   }
 }
 
-template <typename T>
-__global__ void __launch_bounds__(kTile * kTile)
+// a K1 launch aims for this many warps in flight (132 SMs x 16)
+constexpr int kFillWarps = 132 * 16;
+
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_all;\n" ::: "memory");
+}
+
+__host__ __device__ constexpr int up4(int n) { return (n + 3) / 4 * 4; }
+
+// Shared-memory plan of one K1 block, in floats (every part starts on a
+// 16-byte boundary): packed weights, the pooled tile, then a region that
+// holds the raw tile and its row sums and, once the pool is built, the
+// projection partials of the `groups` tap groups.
+struct FusedPlan {
+  int P, AR, RH, RW, PS;              // halos, raw tile, pooled tile edge
+  int wconv, bconv, wproj, pool, raw, hsum, part, total;
+  __host__ __device__ FusedPlan(int kT, int C, int Cout, int band, int vec,
+                                int groups) {
+    P = band + 2;                       // pooled halo: tap 1 + band + corner 1
+    const int R = P + 1;                // raw halo: one more for the pool
+    AR = (R + vec - 1) / vec * vec;     // raw column halo, 16-byte aligned
+    RH = kT + 2 * R;
+    RW = kT + 2 * AR;
+    PS = kT + 2 * P;
+    wconv = 0;
+    bconv = wconv + kTaps * kTaps * C * 4;
+    wproj = bconv + kTaps * 4;
+    pool = wproj + kTaps * C * kMaxC;   // rows padded to kMaxC
+    raw = pool + up4(C * PS * PS);
+    // the raw tile in floats: its elements take 16 / vec bytes each
+    hsum = raw + up4((C * RH * RW * (16 / vec) + 3) / 4);
+    part = raw;
+    const int end = hsum + C * RH * PS;
+    total = max(end, part + groups * Cout * kT * kT);
+  }
+};
+
+// kT x kT output tiles, kTPT taps a thread (1, 3 or 9): 9 / kTPT
+// threads a pixel
+// (16x16 tiles with 9 taps a thread hold <= 64 registers, so that 4
+// blocks share an SM: 528 places for the 400 blocks of a 320^2 map)
+template <typename T, int kT, int kTPT>
+__global__ void __launch_bounds__(kTaps / kTPT * kT * kT, kTPT == 9 ? 4 : 1)
 fused_radarconv_kernel(const T* __restrict__ x, const float* __restrict__ wconv,
                        const float* __restrict__ bconv,
                        const float* __restrict__ wproj, T* __restrict__ out,
-                       int C, int Cout, int H, int W, int band) {
-  extern __shared__ float smem[];
-  const int P = band + 2;                  // pooled halo: tap 1 + band + corner 1
-  const int SH = kTile + 2 * P, SW = kTile + 2 * P;
-  float* s_pool = smem;                    // [C][SH][SW], 0 outside the image
-  float* s_wconv = s_pool + C * SH * SW;   // [9C][27]
-  float* s_bconv = s_wconv + kTaps * C * 27;
-  float* s_wproj = s_bconv + 27;           // [9C][Cout]
+                       int C, int Cout, int H, int W, int band, int vec_ok) {
+  constexpr int kPix = kT * kT;
+  constexpr int kGroups = kTaps / kTPT;
+  constexpr int kThreads = kGroups * kPix;
+  constexpr int kVec = 16 / sizeof(T);
+  extern __shared__ __align__(16) float smem[];
+  PHASE(0);
+  const FusedPlan plan(kT, C, Cout, band, kVec, kGroups);
+  const int P = plan.P, AR = plan.AR, RH = plan.RH, RW = plan.RW,
+            PS = plan.PS;
+  float* s_wconv = smem + plan.wconv;    // [9 taps][9C][4]
+  float* s_bconv = smem + plan.bconv;    // [9 taps][4]
+  float* s_wproj = smem + plan.wproj;    // [9C][8], 0 past Cout
+  float* s_pool = smem + plan.pool;      // [C][PS][PS], 0 outside the image
+  T* s_raw = reinterpret_cast<T*>(smem + plan.raw);   // [C][RH][RW]
+  float* s_hsum = smem + plan.hsum;      // [C][RH][PS]
+  float* s_part = smem + plan.part;      // [groups][Cout][64]
 
   const int b = blockIdx.z;
-  const int ty0 = blockIdx.y * kTile, tx0 = blockIdx.x * kTile;
-  const int tid = threadIdx.y * kTile + threadIdx.x;
-  const int nthreads = kTile * kTile;
+  const int ty0 = blockIdx.y * kT, tx0 = blockIdx.x * kT;
+  const int tid = threadIdx.x;
   const int HW = H * W;
   const T* xb = x + (int64_t)b * C * HW;
+  const int ry0 = ty0 - P - 1, rx0 = tx0 - AR;   // raw tile origin
 
-  for (int i = tid; i < kTaps * C * 27; i += nthreads) s_wconv[i] = wconv[i];
-  for (int i = tid; i < 27; i += nthreads) s_bconv[i] = bconv[i];
-  for (int i = tid; i < kTaps * C * Cout; i += nthreads) s_wproj[i] = wproj[i];
-
-  // 3x3 stride-1 avg-pool, count_include_pad: the sum of the in-image
-  // inputs over 9; pooled values outside the image are 0
-  for (int i = tid; i < C * SH * SW; i += nthreads) {
-    const int c = i / (SH * SW), r = i % (SH * SW);
-    const int gy = ty0 - P + r / SW, gx = tx0 - P + r % SW;
-    float v = 0.f;
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-      const T* xc = xb + c * HW;
-      float s = 0.f;
-      for (int dy = -1; dy <= 1; ++dy) {
-        const int yy = gy + dy;
-        if (yy < 0 || yy >= H) continue;
-        for (int dx = -1; dx <= 1; ++dx) {
-          const int xx = gx + dx;
-          if (xx >= 0 && xx < W) s += load_f32(xc + yy * W + xx);
-        }
+  // stage weights and the raw tile
+  const int nconv4 = kTaps * kTaps * C + kTaps;   // wconv then bconv
+  for (int i = tid; i < nconv4; i += kThreads)
+    cp_async16(smem + 4 * i, i < kTaps * kTaps * C
+               ? wconv + 4 * i : bconv + 4 * (i - kTaps * kTaps * C));
+  for (int i = tid; i < kTaps * C * kMaxC; i += kThreads) {
+    const int row = i / kMaxC, co = i % kMaxC;
+    if (co < Cout)
+      cp_async4(s_wproj + i, wproj + row * Cout + co);
+    else
+      s_wproj[i] = 0.f;
+  }
+  const int chunks = RW / kVec;
+  for (int i = tid; i < C * RH * chunks; i += kThreads) {
+    const int c = i / (RH * chunks), r = (i / chunks) % RH, j = i % chunks;
+    const int gy = ry0 + r, gx = rx0 + j * kVec;
+    T* dst = s_raw + (c * RH + r) * RW + j * kVec;
+    const T* src = xb + (int64_t)c * HW + (int64_t)gy * W + gx;
+    const bool row_in = gy >= 0 && gy < H;
+    if (vec_ok) {
+      // W is a multiple of kVec, so a chunk is wholly in or out
+      if (row_in && gx >= 0 && gx < W)
+        cp_async16(dst, src);
+      else
+        *reinterpret_cast<uint4*>(dst) = make_uint4(0, 0, 0, 0);
+    } else {
+      for (int e = 0; e < kVec; ++e) {
+        const bool in = row_in && gx + e >= 0 && gx + e < W;
+        dst[e] = in ? src[e] : T(0.f);
       }
-      v = s * (1.f / 9.f);
     }
-    s_pool[i] = v;
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  PHASE(1);
+
+  // 3x3 stride-1 avg-pool, count_include_pad, separable: row sums of 3 ...
+  // (rows and columns stepped without a division an element)
+  const int drow = kThreads / PS, dcol = kThreads % PS;
+  for (int row = tid / PS, j = tid % PS; row < C * RH;) {
+    const T* rr = s_raw + row * RW + AR - P - 1 + j;
+    s_hsum[row * PS + j] = load_f32(rr) + load_f32(rr + 1) + load_f32(rr + 2);
+    row += drow;
+    j += dcol;
+    if (j >= PS) j -= PS, ++row;
   }
   __syncthreads();
+  PHASE(2);
+  // ... then column sums of 3 over 9; pooled values outside the image are 0
+  for (int c = tid / PS / PS, r = tid / PS % PS, j = tid % PS; c < C;) {
+    const int gy = ty0 - P + r, gx = tx0 - P + j;
+    float v = 0.f;
+    if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+      const float* hs = s_hsum + (c * RH + r) * PS + j;
+      v = (hs[0] + hs[PS] + hs[2 * PS]) * (1.f / 9.f);
+    }
+    s_pool[(c * PS + r) * PS + j] = v;
+    r += drow;
+    j += dcol;
+    if (j >= PS) j -= PS, ++r;
+    while (r >= PS) r -= PS, ++c;
+  }
+  __syncthreads();
+  PHASE(3);
 
-  const int ly = threadIdx.y, lx = threadIdx.x;
-  const int y = ty0 + ly, xq = tx0 + lx;
-  if (y >= H || xq >= W) return;
+  // one (tap group, pixel) a thread; the group is uniform across each warp
+  const int grp = tid / kPix, pix = tid % kPix;
+  const int ly = pix / kT, lx = pix % kT;
+  const int tap0 = grp * kTPT;
 
-  // offset (0..17) and modulator (18..26) convs, 3x3 SAME over the pooled map
-  float acc[27];
+  // the taps' offset (dy, dx) and modulator convs, 3x3 SAME over the
+  // pool: each pooled value feeds the 3 kTPT accumulators it meets
+  const float4* wt = reinterpret_cast<const float4*>(s_wconv);
+  float acc[kTPT][3];
 #pragma unroll
-  for (int o = 0; o < 27; ++o) acc[o] = 0.f;
-  for (int ky = 0; ky < 3; ++ky) {
-    for (int kx = 0; kx < 3; ++kx) {
-      for (int ci = 0; ci < C; ++ci) {
-        const float pv = s_pool[(ci * SH + ly + P - 1 + ky) * SW + lx + P - 1 + kx];
-        const float* wr = s_wconv + ((ky * 3 + kx) * C + ci) * 27;
+  for (int t = 0; t < kTPT; ++t) {
 #pragma unroll
-        for (int o = 0; o < 27; ++o) acc[o] = fmaf(wr[o], pv, acc[o]);
+    for (int o = 0; o < 3; ++o) acc[t][o] = s_bconv[4 * (tap0 + t) + o];
+  }
+#pragma unroll
+  for (int k = 0; k < kTaps; ++k) {
+    const float* pr = s_pool + (ly + P - 1 + k / 3) * PS + lx + P - 1 + k % 3;
+#pragma unroll
+    for (int ci = 0; ci < kMaxC; ++ci) {
+      if (ci < C) {
+        const float pv = pr[ci * PS * PS];
+#pragma unroll
+        for (int t = 0; t < kTPT; ++t) {
+          const float4 w4 = wt[((tap0 + t) * kTaps + k) * C + ci];
+          acc[t][0] = fmaf(w4.x, pv, acc[t][0]);
+          acc[t][1] = fmaf(w4.y, pv, acc[t][1]);
+          acc[t][2] = fmaf(w4.z, pv, acc[t][2]);
+        }
       }
     }
   }
 
+  PHASE(4);
   float proj[kMaxC];
 #pragma unroll
   for (int co = 0; co < kMaxC; ++co) proj[co] = 0.f;
 #pragma unroll
-  for (int ki = 0; ki < kTaps; ++ki) {
-    const float oy = clip_band(acc[2 * ki] + s_bconv[2 * ki], band);
-    const float ox = clip_band(acc[2 * ki + 1] + s_bconv[2 * ki + 1], band);
-    const float m = 2.f / (1.f + expf(-(acc[18 + ki] + s_bconv[18 + ki])));
+  for (int t = 0; t < kTPT; ++t) {
+    const int tap = tap0 + t;
+    const float oy = clip_band(acc[t][0], band);
+    const float ox = clip_band(acc[t][1], band);
+    const float m = 2.f / (1.f + expf(-acc[t][2]));
     const float fy = floorf(oy), fx = floorf(ox);
     const float wy1 = oy - fy, wx1 = ox - fx;
     const float w00 = (1.f - wy1) * (1.f - wx1), w01 = (1.f - wy1) * wx1;
     const float w10 = wy1 * (1.f - wx1), w11 = wy1 * wx1;
     // tile coordinates: |o| <= band keeps every corner inside the halo
-    const int sy = ly + P + ki / 3 - 1 + (int)fy;
-    const int sx = lx + P + ki % 3 - 1 + (int)fx;
-    for (int ci = 0; ci < C; ++ci) {
-      const float* pc = s_pool + (ci * SH + sy) * SW + sx;
-      float s = pc[0] * w00;
-      s += pc[1] * w01;
-      s += pc[SW] * w10;
-      s += pc[SW + 1] * w11;
-      s *= m;
-      const float* wp = s_wproj + (ki * C + ci) * Cout;
+    const int sy = ly + P + tap / 3 - 1 + (int)fy;
+    const int sx = lx + P + tap % 3 - 1 + (int)fx;
 #pragma unroll
-      for (int co = 0; co < kMaxC; ++co)
-        if (co < Cout) proj[co] = fmaf(wp[co], s, proj[co]);
+    for (int ci = 0; ci < kMaxC; ++ci) {
+      if (ci < C) {
+        const float* pc = s_pool + (ci * PS + sy) * PS + sx;
+        float s = pc[0] * w00;
+        s += pc[1] * w01;
+        s += pc[PS] * w10;
+        s += pc[PS + 1] * w11;
+        s *= m;
+        // a padded row: two broadcast 128-bit loads, 0 past Cout
+        const float4* wp =
+            reinterpret_cast<const float4*>(s_wproj + (tap * C + ci) * kMaxC);
+        const float4 w0 = wp[0], w1 = wp[1];
+        proj[0] = fmaf(w0.x, s, proj[0]);
+        proj[1] = fmaf(w0.y, s, proj[1]);
+        proj[2] = fmaf(w0.z, s, proj[2]);
+        proj[3] = fmaf(w0.w, s, proj[3]);
+        proj[4] = fmaf(w1.x, s, proj[4]);
+        proj[5] = fmaf(w1.y, s, proj[5]);
+        proj[6] = fmaf(w1.z, s, proj[6]);
+        proj[7] = fmaf(w1.w, s, proj[7]);
+      }
     }
   }
-  T* ob = out + (int64_t)b * Cout * HW + y * W + xq;
+  // the raw tile and row sums are dead: their space takes the partials
 #pragma unroll
   for (int co = 0; co < kMaxC; ++co)
-    if (co < Cout) store(ob + co * HW, proj[co]);
+    if (co < Cout) s_part[(grp * Cout + co) * kPix + pix] = proj[co];
+  __syncthreads();
+  PHASE(5);
+
+  for (int i = tid; i < Cout * kPix; i += kThreads) {
+    const int co = i / kPix, p = i % kPix;
+    const int y = ty0 + p / kT, xq = tx0 + p % kT;
+    if (y >= H || xq >= W) continue;
+    float sum = 0.f;
+#pragma unroll
+    for (int g = 0; g < kGroups; ++g)
+      sum += s_part[(g * Cout + co) * kPix + p];
+    store(out + ((int64_t)b * Cout + co) * HW + y * W + xq, sum);
+  }
+  PHASE(6);
 }
 
+template <typename T, int kT, int kTPT>
+cudaError_t launch_fused_tile(const T* x, const float* wconv,
+                              const float* bconv, const float* wproj, T* out,
+                              int B, int C, int Cout, int H, int W, int band,
+                              cudaStream_t stream) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kThreads = kTaps / kTPT * kT * kT;
+  const size_t smem = sizeof(float) *
+      FusedPlan(kT, C, Cout, band, kVec, kTaps / kTPT).total;
+  if (smem > 232448) return cudaErrorInvalidValue;   // band too large
+  // opting in costs a driver call: make it once per size reached
+  static size_t opted = 48 * 1024;
+  if (smem > opted) {
+    cudaError_t err = cudaFuncSetAttribute(
+        fused_radarconv_kernel<T, kT, kTPT>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+    opted = smem;
+  }
+  const int vec_ok =
+      W % kVec == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
+  dim3 grid((W + kT - 1) / kT, (H + kT - 1) / kT, B);
+  fused_radarconv_kernel<T, kT, kTPT><<<grid, kThreads, smem, stream>>>(
+      x, wconv, bconv, wproj, out, C, Cout, H, W, band, vec_ok);
+  return cudaGetLastError();
+}
+
+// Tile and taps a thread from the grid: the fewest threads a pixel, on the
+// largest tile (less halo to pool), that still put kFillWarps warps in
+// flight.  Serving shapes: 320^2 takes 16x16 tiles with 9 taps a thread
+// (400 blocks of 8 warps), 160^2 8x8 with 3 (400 of 6), 80^2 8x8 with 1
+// (100 of 18).
 template <typename T>
 cudaError_t launch_fused(const void* x, const float* wconv, const float* bconv,
                          const float* wproj, void* out, int B, int C, int Cout,
                          int H, int W, int band, cudaStream_t stream) {
-  const int P = band + 2;
-  const size_t smem = sizeof(float) *
-      ((size_t)C * (kTile + 2 * P) * (kTile + 2 * P) + kTaps * C * 27 + 27 +
-       kTaps * C * Cout);
-  if (smem > 48 * 1024) {
-    cudaError_t err = cudaFuncSetAttribute(
-        fused_radarconv_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  dim3 grid((W + kTile - 1) / kTile, (H + kTile - 1) / kTile, B);
-  dim3 block(kTile, kTile);
-  fused_radarconv_kernel<T><<<grid, block, smem, stream>>>(
-      static_cast<const T*>(x), wconv, bconv, wproj, static_cast<T*>(out), C,
-      Cout, H, W, band);
-  return cudaGetLastError();
+  // the packed weights are copied 16 bytes at a time
+  if (reinterpret_cast<uintptr_t>(wconv) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(bconv) % 16 != 0)
+    return cudaErrorMisalignedAddress;
+  auto blocks = [&](int t) {
+    return (int64_t)B * ((H + t - 1) / t) * ((W + t - 1) / t);
+  };
+  auto xt = static_cast<const T*>(x);
+  auto ot = static_cast<T*>(out);
+  if (blocks(16) * 8 >= kFillWarps)
+    return launch_fused_tile<T, 16, 9>(xt, wconv, bconv, wproj, ot, B, C,
+                                       Cout, H, W, band, stream);
+  if (blocks(8) * 6 >= kFillWarps)
+    return launch_fused_tile<T, 8, 3>(xt, wconv, bconv, wproj, ot, B, C,
+                                      Cout, H, W, band, stream);
+  return launch_fused_tile<T, 8, 1>(xt, wconv, bconv, wproj, ot, B, C, Cout,
+                                    H, W, band, stream);
 }
 
 template <typename T>
@@ -276,6 +472,19 @@ int achelous_deform_samples(const void* x, const void* off, const void* mask,
       ? launch_samples<float>(x, off, mask, out, B, C, H, W, band, s)
       : launch_samples<__nv_bfloat16>(x, off, mask, out, B, C, H, W, band, s));
 }
+
+#if ACHELOUS_PHASE_CLOCKS
+// The phase stamps since the last call (kPhaseBlocks x kPhases) into
+// host memory; then zeroes them.
+int achelous_deform_phase_clocks(long long* dst) {
+  cudaError_t err =
+      cudaMemcpyFromSymbol(dst, g_phase_clock, sizeof(g_phase_clock));
+  void* dev = nullptr;
+  if (err == cudaSuccess) err = cudaGetSymbolAddress(&dev, g_phase_clock);
+  if (err == cudaSuccess) err = cudaMemset(dev, 0, sizeof(g_phase_clock));
+  return (int)err;
+}
+#endif
 
 const char* achelous_cuda_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));

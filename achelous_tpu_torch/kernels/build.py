@@ -8,6 +8,11 @@ calls (and later processes) reuse it.  The library is loaded with ctypes.
 Nothing is fetched: the sources in the checkout are the whole input.
 
     python -m achelous_tpu_torch.kernels.build     # build, print seconds
+    python -m achelous_tpu_torch.kernels.build --report
+        # also: each kernel's registers, shared memory and spills
+        # (nvcc -Xptxas -v) and its tensor-core (HMMA), ldmatrix (LDSM)
+        # and cp.async (LDGSTS) instructions in the built library's SASS
+        # (cuobjdump -sass)
 """
 from __future__ import annotations
 
@@ -56,18 +61,22 @@ def nvcc() -> str:
     return str(path)
 
 
-def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources():
+def library_path(flags: tuple = ()) -> Path:
+    """Where the library built with NVCC_FLAGS + `flags` lives: named by a
+    hash of the flags and of every source and header."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS + list(flags)).encode())
+    for src in sources() + sorted(CSRC.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"libachelous_kernels_{h.hexdigest()[:16]}.so"
 
 
-def build() -> float:
-    """Compile the library if it is not built yet; returns the seconds the
-    compile took (0.0 when it was already there)."""
-    lib = library_path()
+def build(flags: tuple = ()) -> float:
+    """Compile the library (with NVCC_FLAGS + `flags`) if it is not built
+    yet; returns the seconds the compile took (0.0 when it was already
+    there)."""
+    lib = library_path(flags)
+    nvcc_flags = NVCC_FLAGS + list(flags)
     if lib.exists():
         return 0.0
     tmp = lib.with_suffix(f".{os.getpid()}.tmp")
@@ -78,7 +87,7 @@ def build() -> float:
         compiles = []
         for src in sources():
             obj = objs / f"{src.stem}.o"
-            cmd = [nvcc()] + NVCC_FLAGS + ["-c", "-o", str(obj), str(src)]
+            cmd = [nvcc()] + nvcc_flags + ["-c", "-o", str(obj), str(src)]
             compiles.append((cmd, subprocess.Popen(
                 cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                 text=True)))
@@ -89,7 +98,7 @@ def build() -> float:
                 failed.append(f"{' '.join(cmd)}\n{out}")
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
-        cmd = [nvcc(), "-shared", "-o", str(tmp)] + NVCC_FLAGS + sorted(
+        cmd = [nvcc(), "-shared", "-o", str(tmp)] + nvcc_flags + sorted(
             str(o) for o in objs.glob("*.o"))
         proc = subprocess.run(cmd, capture_output=True, text=True)
         if proc.returncode != 0:
@@ -126,5 +135,46 @@ def raise_on(name: str, err: int):
         raise RuntimeError(f"{name}: CUDA error {err}: {msg}")
 
 
+SASS_OPS = ("HMMA", "LDSM", "LDGSTS")
+
+
+def report():
+    """Print what ptxas says of each kernel, and the count of SASS_OPS in
+    each kernel function of the built library."""
+    objs = BUILD_DIR / f"report.{os.getpid()}"
+    objs.mkdir(parents=True, exist_ok=True)
+    try:
+        for src in sources():
+            proc = subprocess.run(
+                [nvcc()] + NVCC_FLAGS + ["-Xptxas", "-v", "-c", "-o",
+                                         str(objs / f"{src.stem}.o"),
+                                         str(src)],
+                capture_output=True, text=True, check=True)
+            print(f"== {src.name} (ptxas -v)")
+            print("\n".join(line for line in proc.stderr.splitlines()
+                            if "ptxas info" in line or "spill" in line))
+    finally:
+        shutil.rmtree(objs, ignore_errors=True)
+    cuobjdump = Path(nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(library_path())],
+                          capture_output=True, text=True, check=True).stdout
+    print("== SASS instruction counts per kernel function")
+    func, counts = None, {}
+    for line in sass.splitlines() + ["Function : <end>"]:
+        if "Function : " in line:
+            if func is not None:
+                print(f"{func}: " + ", ".join(f"{op} {counts[op]}"
+                                              for op in SASS_OPS))
+            func = line.split("Function : ")[1].strip()
+            counts = {op: 0 for op in SASS_OPS}
+            continue
+        for op in SASS_OPS:
+            if f" {op}" in line:
+                counts[op] += 1
+
+
 if __name__ == "__main__":
+    import sys
     print(f"built {library_path()} in {build():.1f} s")
+    if "--report" in sys.argv[1:]:
+        report()

@@ -30,6 +30,7 @@ from torch import nn
 from achelous_tpu_torch.core.config import WIDTHS
 from achelous_tpu_torch.ops.hopper_attention import fused_bias_attention
 from achelous_tpu_torch.ops.norm import BatchNorm
+from achelous_tpu_torch.ops.param_cache import ParamCache
 from achelous_tpu_torch.ops.resize import resize_bilinear
 
 DEPTHS = {"S2": (4, 4, 12, 8), "S1": (3, 3, 9, 6), "S0": (2, 2, 6, 4)}
@@ -123,6 +124,30 @@ class Attention4D(nn.Module):
         self.talking_head2 = nn.Conv2d(num_heads, num_heads, 1)
         self.proj = _proj(dh, dim)
         _bias_table(self, *bias_idxs_same(self.res))
+        self._kernel_args = ParamCache()
+
+    def _apply(self, fn, *args, **kwargs):
+        self._kernel_args.clear()
+        return super()._apply(fn, *args, **kwargs)
+
+    def kernel_args(self, dt: torch.dtype):
+        """(bias [h,N,N], th1_w, th1_b, th2_w, th2_b) as K3 takes them: the
+        gathered bias table and the head mixes (weights [g_out, h_in]) in
+        the compute dtype `dt`, as the JAX package rounds them.  Built once
+        and again only when a parameter changes (ops/param_cache.py)."""
+        h = self.num_heads
+        tensors = (self.attention_biases, self.attention_bias_idxs,
+                   self.talking_head1.weight, self.talking_head1.bias,
+                   self.talking_head2.weight, self.talking_head2.bias)
+
+        def build():
+            mix = []
+            for c in (self.talking_head1, self.talking_head2):
+                mix += [c.weight.reshape(h, h).to(dt), c.bias.to(dt)]
+            return (self.attention_biases[:, self.attention_bias_idxs].to(dt),
+                    *mix)
+
+        return self._kernel_args.get(tensors, build, dt)
 
     def forward(self, x):
         if self.stride_conv is not None:
@@ -134,16 +159,10 @@ class Attention4D(nn.Module):
 
         v = self.v(x)
         v_local = self.v_local(v)
-        dt = x.dtype
-        # the bias table and the head mixes in the compute dtype, as the
-        # JAX package rounds them
-        bias = self.attention_biases[:, self.attention_bias_idxs].to(dt)
-        mix = []                               # weight [g_out, h_in], bias
-        for c in (self.talking_head1, self.talking_head2):
-            mix += [c.weight.reshape(h, h).to(dt), c.bias.to(dt)]
         out = fused_bias_attention(
             heads(self.q(x), self.key_dim), heads(self.k(x), self.key_dim),
-            heads(v, self.d), bias, *mix, self.key_dim ** -0.5)
+            heads(v, self.d), *self.kernel_args(x.dtype),
+            self.key_dim ** -0.5)
         out = out.transpose(2, 3).reshape(b, h * self.d, self.res, self.res)
         out = out + v_local
         if self.stride_conv is not None:

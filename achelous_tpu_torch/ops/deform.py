@@ -28,6 +28,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from achelous_tpu_torch.ops import hopper_deform
+from achelous_tpu_torch.ops.param_cache import ParamCache
 from achelous_tpu_torch.ops.primitives import avg_pool_same
 
 TAPS = 9    # 3x3 deformable conv
@@ -106,8 +107,11 @@ class DeformableConv2d(nn.Module):
     at init this is a plain conv with x1 modulation.
 
     With an integer band and at most `FUSED_MAX_C` channels in and out, the
-    whole module is one call of K1; otherwise pool and offset/modulator
-    convs run in PyTorch, K2 samples, and a matmul projects.
+    whole module is one call of K1, on weights packed once
+    (`hopper_deform.pack_radarconv_weights`) and packed again only when a
+    parameter changes (`ops/param_cache.py`); otherwise pool and
+    offset/modulator convs run in PyTorch, K2 samples, and a matmul
+    projects.
     """
 
     def __init__(self, cin: int, features: int, band: Optional[int] = None):
@@ -118,6 +122,19 @@ class DeformableConv2d(nn.Module):
         self.regular_conv = nn.Conv2d(cin, features, 3, 1, 1, bias=False)
         self.fused = (band is not None
                       and max(cin, features) <= hopper_deform.FUSED_MAX_C)
+        self._packed = ParamCache()
+
+    def _apply(self, fn, *args, **kwargs):
+        self._packed.clear()
+        return super()._apply(fn, *args, **kwargs)
+
+    def packed_weights(self):
+        """(wconv, bconv, wproj) as K1 reads them."""
+        params = (self.offset_conv.weight, self.offset_conv.bias,
+                  self.modulator_conv.weight, self.modulator_conv.bias,
+                  self.regular_conv.weight)
+        return self._packed.get(
+            params, lambda: hopper_deform.pack_radarconv_weights(*params))
 
     def zero_init_(self):
         for conv in (self.offset_conv, self.modulator_conv):
@@ -126,10 +143,8 @@ class DeformableConv2d(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.fused:
-            return hopper_deform.fused_radarconv(
-                x, self.offset_conv.weight, self.offset_conv.bias,
-                self.modulator_conv.weight, self.modulator_conv.bias,
-                self.regular_conv.weight, self.band)
+            return hopper_deform.fused_radarconv(x, *self.packed_weights(),
+                                                 self.band)
         pooled = avg_pool_same(x, 3)
         off = self.offset_conv(pooled)
         mask = 2.0 * torch.sigmoid(self.modulator_conv(pooled))

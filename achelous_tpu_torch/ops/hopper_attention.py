@@ -10,7 +10,9 @@ The wrapper counts its kernel launches in its `launches` attribute.
 
 All inputs share one dtype, float32 or bf16 (the caller rounds the bias
 table and the head mixes to the compute dtype first, as the JAX package
-does); the kernel computes in float32 and returns that dtype.
+does; Attention4D caches them so rounded); the kernel runs both products
+on tensor cores (bf16 operands; float32 inputs split into three bf16
+planes), everything else in float32, and returns that dtype.
 """
 from __future__ import annotations
 
@@ -21,9 +23,9 @@ import torch
 from achelous_tpu_torch.kernels import build
 
 MAX_HEADS = 8         # the head mixes keep one value per head in registers
-MAX_KEY_DIM = 64      # a key row is held in registers
-MAX_TOKENS = 4096     # one query row's logits, all heads, in shared memory
-MAX_VALUE_DIM = 1024  # at least 16 keys of v staged in shared memory
+MAX_KEY_DIM = 64      # every head's keys staged in shared memory, 16 at least
+MAX_TOKENS = 4096     # the keys stream through in chunks; the grid bounds N
+MAX_VALUE_DIM = 1024  # 64 value columns a block
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 
 

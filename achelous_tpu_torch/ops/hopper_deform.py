@@ -44,42 +44,78 @@ def _check_cuda(name: str, x: torch.Tensor, *others: torch.Tensor):
                              f"indexing")
 
 
-def fused_radarconv(x: torch.Tensor, w_off: torch.Tensor, b_off: torch.Tensor,
-                    w_mod: torch.Tensor, b_mod: torch.Tensor,
-                    weight: torch.Tensor, band: int) -> torch.Tensor:
-    """K1: a whole RadarConv.  x [B,C,H,W] raw; w_off [18,C,3,3], b_off
-    [18]; w_mod [9,C,3,3], b_mod [9]; weight [Cout,C,3,3]; integer band.
-    Returns [B,Cout,H,W] in x's dtype."""
+def pack_radarconv_weights(w_off: torch.Tensor, b_off: torch.Tensor,
+                           w_mod: torch.Tensor, b_mod: torch.Tensor,
+                           weight: torch.Tensor):
+    """A RadarConv's weights in the float32 layout K1 reads, tap-major:
+
+      wconv [9, 9C, 4]  row ki: the three conv outputs tap ki needs (dy =
+                        offset channel 2ki, dx = 2ki+1, modulator ki, then
+                        a 0 pad) over the conv's inputs in (ky, kx, ci)
+                        order
+      bconv [9, 4]      their biases, the same way
+      wproj [9C, Cout]  the projection, rows in (ki, ci) order
+
+    from w_off [18,C,3,3], b_off [18], w_mod [9,C,3,3], b_mod [9] and the
+    deformable weight [Cout,C,3,3].  The weights never change while a model
+    serves, so callers pack once (DeformableConv2d caches the result)."""
+    c = w_off.shape[1]
+    zeros = torch.zeros_like(w_mod)
+    w3 = torch.stack([w_off[0::2], w_off[1::2], w_mod, zeros], dim=-1)
+    wconv = w3.float().permute(0, 2, 3, 1, 4).reshape(
+        TAPS, TAPS * c, 4).contiguous()
+    bconv = torch.stack([b_off[0::2], b_off[1::2], b_mod,
+                         torch.zeros_like(b_mod)], dim=-1).float().contiguous()
+    wproj = weight.float().permute(2, 3, 1, 0).reshape(
+        TAPS * c, weight.shape[0]).contiguous()
+    return wconv, bconv, wproj
+
+
+def unpack_radarconv_weights(wconv: torch.Tensor, bconv: torch.Tensor,
+                             wproj: torch.Tensor):
+    """The inverse of `pack_radarconv_weights`: (w_off, b_off, w_mod,
+    b_mod, weight) in float32, contiguous, so the plain version computes
+    on them exactly as on the module's own weights."""
+    c = wconv.shape[1] // TAPS
+    w = wconv.reshape(TAPS, 3, 3, c, 4).permute(0, 4, 3, 1, 2)  # [9,4,C,3,3]
+    w_off = torch.stack([w[:, 0], w[:, 1]], dim=1).reshape(2 * TAPS, c, 3, 3)
+    b_off = bconv[:, :2].reshape(2 * TAPS)
+    weight = wproj.reshape(3, 3, c, -1).permute(3, 2, 0, 1)
+    return tuple(t.contiguous() for t in
+                 (w_off, b_off, w[:, 2], bconv[:, 2], weight))
+
+
+def fused_radarconv(x: torch.Tensor, wconv: torch.Tensor,
+                    bconv: torch.Tensor, wproj: torch.Tensor,
+                    band: int) -> torch.Tensor:
+    """K1: a whole RadarConv, one launch.  x [B,C,H,W] raw; the weights as
+    `pack_radarconv_weights` lays them out; integer band.  Returns
+    [B,Cout,H,W] in x's dtype."""
     if x.device.type == "cpu":
         from achelous_tpu_torch.ops.deform import fused_radarconv_reference
-        return fused_radarconv_reference(x, w_off, b_off, w_mod, b_mod,
-                                         weight, band)
+        return fused_radarconv_reference(
+            x, *unpack_radarconv_weights(wconv, bconv, wproj), band)
     _check_cuda("fused_radarconv", x)
     if x.dim() != 4:
         raise ValueError(f"fused_radarconv: x must be [B,C,H,W], got "
                          f"{tuple(x.shape)}")
     b, c, h, w = x.shape
-    cout = weight.shape[0]
+    cout = wproj.shape[-1]
     if not (1 <= c <= FUSED_MAX_C and 1 <= cout <= FUSED_MAX_C):
         raise ValueError(f"fused_radarconv: channels in/out must be 1.."
                          f"{FUSED_MAX_C}, got {c}/{cout}")
-    want = {"w_off": (w_off, (2 * TAPS, c, 3, 3)), "b_off": (b_off, (2 * TAPS,)),
-            "w_mod": (w_mod, (TAPS, c, 3, 3)), "b_mod": (b_mod, (TAPS,)),
-            "weight": (weight, (cout, c, 3, 3))}
+    want = {"wconv": (wconv, (TAPS, TAPS * c, 4)), "bconv": (bconv, (TAPS, 4)),
+            "wproj": (wproj, (TAPS * c, cout))}
     for name, (t, shape) in want.items():
         if tuple(t.shape) != shape:
             raise ValueError(f"fused_radarconv: {name} must be {shape}, got "
                              f"{tuple(t.shape)}")
+        if t.dtype != torch.float32:
+            raise TypeError(f"fused_radarconv: {name} must be float32 (from "
+                            f"pack_radarconv_weights), got {t.dtype}")
     if isinstance(band, bool) or not isinstance(band, int) or band < 0:
         raise ValueError(f"fused_radarconv: band must be an int >= 0, got "
                          f"{band!r}")
-    # [9C, 27] conv weights (18 offset then 9 modulator columns) and the
-    # [9C, Cout] projection, rows in tap-major (ky, kx, ci) order
-    wconv = torch.cat([w_off, w_mod]).float().permute(2, 3, 1, 0).reshape(
-        TAPS * c, 3 * TAPS).contiguous()
-    bconv = torch.cat([b_off, b_mod]).float().contiguous()
-    wproj = weight.float().permute(2, 3, 1, 0).reshape(
-        TAPS * c, cout).contiguous()
     _check_cuda("fused_radarconv", x, wconv, bconv, wproj)
     out = torch.empty((b, cout, h, w), dtype=x.dtype, device=x.device)
     if out.numel() == 0:

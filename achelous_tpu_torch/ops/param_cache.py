@@ -1,0 +1,45 @@
+"""Tensors derived from a module's parameters, kept between calls.
+
+A kernel may want its weights in another layout or dtype than the module
+holds them (K1's packed conv weights, K3's gathered bias table).  Building
+them costs launches on every call; `ParamCache` builds them once and again
+only when a parameter changes.  The key is each parameter's `data_ptr()`
+and `_version`: an in-place update (`copy_`, `load_state_dict`) bumps the
+version, and a move or cast (`module.to`, `.cuda()`, `.bfloat16()`) must
+call `clear()` from the module's `_apply`, since new storage may reuse an
+old address.
+
+Where a gradient is asked for, the tensors are built afresh on every call
+and never cached: a cached tensor made under `torch.inference_mode` cannot
+enter a graph that needs a gradient, and a cached one made under
+`no_grad` would cut the graph.
+"""
+from __future__ import annotations
+
+from typing import Callable, Hashable, Sequence
+
+import torch
+
+
+class ParamCache:
+    def __init__(self):
+        self.key = None
+        self.value = None
+
+    def clear(self):
+        self.key = self.value = None
+
+    def get(self, tensors: Sequence[torch.Tensor], build: Callable,
+            extra: Hashable = None):
+        """`build()`, or its cached result while every tensor in `tensors`
+        and `extra` (e.g. the compute dtype) are as they were."""
+        if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+            return build()
+        if any(t.is_inference() for t in tensors):
+            return build()                 # no version counter to key on
+        key = tuple((t.data_ptr(), t._version) for t in tensors) + (extra,)
+        if key != self.key:
+            with torch.no_grad():
+                self.value = build()
+            self.key = key
+        return self.value

@@ -27,6 +27,23 @@ from achelous_tpu_torch.entry import (entry, perturb_attention,
 FRAMES = 20
 
 
+def profile_frames(fn, q, frames: int = FRAMES):
+    """Serve `frames` requests `fn(*q)` under torch.profiler: (wall ms a
+    frame, device busy ms a frame, kernels a frame, the profiler)."""
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(frames):
+            fn(*q)
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / frames
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / frames
+    launches = sum(e.count for e in rows) / frames
+    return wall_ms, busy_ms, launches, prof
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--backbone", default="en", choices=("en", "ef"))
@@ -52,23 +69,15 @@ def main():
         fn(*q)
     torch.cuda.synchronize()
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(FRAMES):
-            fn(*q)
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3 / FRAMES
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / FRAMES
-    launches = sum(e.count for e in rows) / FRAMES
+    wall_ms, busy_ms, launches, prof = profile_frames(fn, q)
     table = prof.key_averages().table(sort_by="self_device_time_total",
                                       row_limit=60)
     (out / f"serving_profile_{fn.cfg.name}.txt").write_text(table)
     print(f"{fn.cfg.name} per frame: wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
           f"{launches:.0f} kernels")
+    rows = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
     rows.sort(key=lambda e: -e.self_device_time_total)
     for e in rows[:15]:
         print(f"  {e.self_device_time_total / 1e3 / FRAMES:8.4f} ms "

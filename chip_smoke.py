@@ -13,7 +13,10 @@ point on each of three paths (320x320, bf16, batch 1):
     EF-GDF-PN-S0   K1 x4, K2 x4, K3 x4
 
 and checks them against the same weights run in float32 through the plain
-versions on the CPU.  Any failure raises; the last line of a passing run is
+versions on the CPU.  K1 is timed as its single launch on weights packed
+once (the pack, which DeformableConv2d caches, is timed once beside it);
+each path logs its kernel launches a request and its kernels/frame under
+torch.profiler.  Any failure raises; the last line of a passing run is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
@@ -197,13 +200,17 @@ def k4_flops(n: int, npoint: int) -> float:
     return npoint * n * 10
 
 
-def check(name, got, want, dtype):
+def check(name, got, want, dtype, top):
+    """Max abs error of the kernel's output against the plain version's;
+    raises outside TOL.  `top[dtype]` keeps the largest |output| seen, the
+    scale a bf16 step is read against."""
     rtol, atol = TOL[dtype]
     g, w = got.float(), want.float()
     err = (g - w).abs().max().item()
     if not torch.allclose(g, w, rtol=rtol, atol=atol):
         raise AssertionError(f"{name}: kernel disagrees with plain version, "
                              f"max abs err {err} (rtol {rtol}, atol {atol})")
+    top[dtype] = max(top[dtype], w.abs().max().item())
     return err
 
 
@@ -230,18 +237,27 @@ def result(worst, ms, plain_ms, t_bytes, t_ops):
 def check_deform_kernels(dev, rng):
     """K1 and K2 against their plain versions at the serving shapes,
     float32 (TF32 off) and bf16."""
-    from achelous_tpu_torch.ops import deform
+    from achelous_tpu_torch.ops import deform, hopper_deform
     w = wrappers()
     results = {}
+
+    def k1_bind(a):
+        """K1 on one case: the weights packed once, outside any timing, as
+        DeformableConv2d caches them; the call is the kernel's one launch."""
+        packed = hopper_deform.pack_radarconv_weights(*a[1:])
+        return lambda: w["fused_radarconv"](a[0], *packed, BAND)
+
     specs = (
         ("fused_radarconv", deform.fused_radarconv_reference, K1_SHAPES,
-         K1_OFFSETS, lambda c, h, o: k1_case(rng, c, h, *o, dev), k1_flops),
+         K1_OFFSETS, lambda c, h, o: k1_case(rng, c, h, *o, dev), k1_flops,
+         k1_bind),
         ("deform_samples", deform.banded_deform_samples, K2_SHAPES,
-         K2_OFFSETS, lambda c, h, o: k2_case(rng, c, h, o, dev), k2_flops),
+         K2_OFFSETS, lambda c, h, o: k2_case(rng, c, h, o, dev), k2_flops,
+         lambda a: lambda: w["deform_samples"](*a, BAND)),
     )
-    for name, plain, shapes, offsets, make, flops in specs:
-        kernel = w[name]
+    for name, plain, shapes, offsets, make, flops, bind in specs:
         worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+        top = dict(worst)
         ms = plain_ms = 0.0
         t_bytes, t_ops = [], []
         for block, c, h in shapes:
@@ -249,26 +265,33 @@ def check_deform_kernels(dev, rng):
                 args = make(c, h, off)
                 for dt in (torch.float32, torch.bfloat16):
                     a = [x.to(dt) for x in args]
-                    got = kernel(*a, BAND)
+                    got = bind(a)()
                     want = plain(*a, BAND)
                     torch.cuda.synchronize()
                     worst[dt] = max(worst[dt], check(
                         f"{name} block {block} {dt} offsets {off}", got,
-                        want, dt))
+                        want, dt, top))
             # time the serving dtype at the largest-offset regime: device
             # time per call, and the rate the host issues calls at
             a = [x.to(torch.bfloat16) for x in args]
+            kernel = bind(a)
             t_k, t_p = timed(name, f"block {block} C={c} {h}x{h} bf16",
-                             lambda: kernel(*a, BAND),
-                             lambda: plain(*a, BAND))
+                             kernel, lambda: plain(*a, BAND))
+            if name == "fused_radarconv" and block == 0:
+                def pack():
+                    return hopper_deform.pack_radarconv_weights(*a[1:])
+                log(f"kernel fused_radarconv: weight pack (once a module, "
+                    f"cached) device {device_ms(pack):.4f} ms, as issued "
+                    f"{cuda_ms(pack):.4f} ms")
             ms += t_k
             plain_ms += t_p
-            out = kernel(*a, BAND)
+            out = kernel()
             tb, to = bound(nbytes(*a, out), flops(a), torch.bfloat16)
             t_bytes.append(tb)
             t_ops.append(to)
         log(f"kernel {name}: max abs err f32 {worst[torch.float32]:.3g}, "
-            f"bf16 {worst[torch.bfloat16]:.3g}")
+            f"bf16 {worst[torch.bfloat16]:.3g} (max |out| "
+            f"{top[torch.bfloat16]:.3g})")
         results[name] = result(worst[torch.float32], ms, plain_ms, t_bytes,
                                t_ops)
     return results
@@ -281,6 +304,7 @@ def check_attention_kernel(dev, rng):
     kernel = wrappers()["fused_bias_attention"]
     scale = K3_DK ** -0.5
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    top = dict(worst)
     for b, n in ((1, K3_N), (2, 16)):
         args = k3_case(rng, b, n, dev)
         for dt in (torch.float32, torch.bfloat16):
@@ -289,7 +313,8 @@ def check_attention_kernel(dev, rng):
             want = reference_bias_attention(*a, scale)
             torch.cuda.synchronize()
             worst[dt] = max(worst[dt], check(
-                f"fused_bias_attention B={b} N={n} {dt}", got, want, dt))
+                f"fused_bias_attention B={b} N={n} {dt}", got, want, dt,
+                top))
     ms = plain_ms = 0.0
     t_bytes, t_ops = [], []
     for call in K3_CALLS:
@@ -304,7 +329,8 @@ def check_attention_kernel(dev, rng):
         t_bytes.append(tb)
         t_ops.append(to)
     log(f"kernel fused_bias_attention: max abs err f32 "
-        f"{worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g}")
+        f"{worst[torch.float32]:.3g}, bf16 {worst[torch.bfloat16]:.3g} "
+        f"(max |out| {top[torch.bfloat16]:.3g})")
     return result(worst[torch.float32], ms, plain_ms, t_bytes, t_ops)
 
 
@@ -459,7 +485,8 @@ def serve_path(dev, label, backbone, pc_model, want_rose):
                                  f"{rose}, want {want_rose}")
     torch.cuda.synchronize()
     counts = {n: f.launches for n, f in w.items()}
-    log(f"main path {label}: launches over {REQUESTS} requests {counts}")
+    log(f"main path {label}: launches over {REQUESTS} requests {counts}; "
+        f"a request {want_rose}")
 
     r, k = cfg.resolution, cfg.num_det
     worst = {}
@@ -514,11 +541,16 @@ def serve_path(dev, label, backbone, pc_model, want_rose):
 
 
 def time_path(label, model, fn, dev_req):
+    from achelous_tpu_torch.trace_serving import profile_frames
     ms_full = cuda_ms(lambda: fn(*dev_req), iters=50)
     with torch.inference_mode():
         ms_fwd = cuda_ms(lambda: model(*dev_req), iters=50)
     log(f"main path {label} bf16 bs1 320x320: fwd+decode+NMS {ms_full:.3f} "
         f"ms/frame, fwd only {ms_fwd:.3f} ms/frame")
+    wall, busy, kernels, _ = profile_frames(fn, dev_req, frames=5)
+    log(f"main path {label} under torch.profiler, 5 frames: kernels/frame "
+        f"{kernels:.0f}, device busy {busy:.3f} ms/frame of {wall:.3f} ms "
+        f"wall")
 
 
 def main():

@@ -2,9 +2,12 @@
 at the shapes the serving paths give them (320x320, batch 1):
 
   K1 fused_radarconv       RCNet blocks 0-3: C = 3 at 320^2, C = 8 at 160^2, 80^2
+                           (packed weights; and ragged 37x53 maps, Cout != C,
+                           bands 0, 4, 6; the module's re-pack after copy_)
   K2 deform_samples        RCNet blocks 4-7: C = 12 at 40^2, C = 24 at 20^2
   K3 fused_bias_attention  EfficientFormerV2 Attention4D: h = 8, N = 100,
-                           dk = 32, dv = 128 (and N = 16 at batch 2)
+                           dk = 32, dv = 128 (and N = 16 at batch 2; and
+                           N up to 400, h 1-8, dk 16-64, dv 8-1024)
   K4 farthest_point_sample PointNet++: 512 -> 128 -> 32 -> 8 -> 4 points,
                            indices exactly equal
 
@@ -42,26 +45,88 @@ def cuda_device():
     torch.backends.cudnn.allow_tf32 = cudnn
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("off_w,off_b", [(0.0, 0.0), (0.5, 3.0), (2.0, 8.0)])
-@pytest.mark.parametrize("c,h", [(3, 320), (8, 160), (8, 80)])
-def test_k1_kernel_matches_plain(cuda_device, c, h, off_w, off_b, dtype):
-    rng = np.random.RandomState(c + h)
+# offset regimes of chip_smoke.py: zero, |o| < 1, |o| about 3, beyond the band
+OFFSETS = [(0.0, 0.0), (0.05, 0.3), (0.5, 3.0), (2.0, 8.0)]
 
+
+def k1_args(rng, b, c, cout, h, w, off_w, off_b, device, dtype):
+    """Raw input and RadarConv weights (port layout) for one K1 call."""
     def t(a):
-        return torch.from_numpy(np.asarray(a, np.float32)).to(cuda_device,
-                                                              dtype)
+        return torch.from_numpy(np.asarray(a, np.float32)).to(device, dtype)
 
-    args = (t(rng.rand(1, c, h, h)), t(rng.randn(18, c, 3, 3) * off_w),
+    return (t(rng.rand(b, c, h, w)), t(rng.randn(18, c, 3, 3) * off_w),
             t(rng.randn(18) * off_b), t(rng.randn(9, c, 3, 3) * 0.3),
-            t(rng.randn(9) * 0.3), t(rng.randn(c, c, 3, 3) * 0.2))
+            t(rng.randn(9) * 0.3), t(rng.randn(cout, c, 3, 3) * 0.2))
+
+
+def check_k1(args, band, dtype):
+    packed = hopper_deform.pack_radarconv_weights(*args[1:])
     before = hopper_deform.fused_radarconv.launches
-    got = hopper_deform.fused_radarconv(*args, BAND)
-    want = deform.fused_radarconv_reference(*args, BAND)
+    got = hopper_deform.fused_radarconv(args[0], *packed, band)
+    want = deform.fused_radarconv_reference(*args, band)
     torch.cuda.synchronize()
     assert hopper_deform.fused_radarconv.launches == before + 1
-    assert got.dtype == dtype and got.shape == (1, c, h, h)
+    b, _, h, w = args[0].shape
+    assert got.dtype == dtype and got.shape == (b, args[5].shape[0], h, w)
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("off_w,off_b", OFFSETS)
+@pytest.mark.parametrize("c,h", [(3, 320), (8, 160), (8, 80)])
+def test_k1_kernel_matches_plain(cuda_device, c, h, off_w, off_b, dtype):
+    """The serving shapes (RCNet blocks 0-3), through the packed path."""
+    args = k1_args(np.random.RandomState(c + h), 1, c, c, h, h, off_w, off_b,
+                   cuda_device, dtype)
+    check_k1(args, BAND, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("off_w,off_b", OFFSETS)
+@pytest.mark.parametrize("band", [0, 4, 6])
+@pytest.mark.parametrize("c,cout", [(1, 5), (3, 8), (8, 2), (5, 1)])
+def test_k1_kernel_ragged_tiles_and_bands(cuda_device, c, cout, band, off_w,
+                                          off_b, dtype):
+    """Cout != C, a 37x53 map (no whole 8x8 tile at the right and bottom
+    edges, and a width that is not a multiple of the 16-byte copies, so
+    the scalar staging path runs), batch 2, bands 0, 4 and 6."""
+    args = k1_args(np.random.RandomState(10 * c + cout + band), 2, c, cout,
+                   37, 53, off_w, off_b, cuda_device, dtype)
+    check_k1(args, band, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("off_w,off_b", [(0.05, 0.3), (2.0, 8.0)])
+@pytest.mark.parametrize("c,cout,h,w,band", [(5, 2, 250, 283, 6),
+                                              (4, 7, 157, 163, 0)])
+def test_k1_kernel_large_ragged_maps(cuda_device, c, cout, h, w, band, off_w,
+                                     off_b, dtype):
+    """Maps large enough for the launch to take its other tilings (16x16
+    tiles with 9 taps a thread; 8x8 with 3), with ragged edges."""
+    args = k1_args(np.random.RandomState(h), 1, c, cout, h, w, off_w, off_b,
+                   cuda_device, dtype)
+    check_k1(args, band, dtype)
+
+
+def test_k1_module_repacks_after_in_place_update(cuda_device):
+    """DeformableConv2d packs its weights once; an in-place copy_ of one
+    weight on the card (as entry.perturb_deform_convs does) re-packs."""
+    torch.manual_seed(0)
+    m = deform.DeformableConv2d(8, 8, band=BAND).to(cuda_device)
+    x = torch.rand(1, 8, 40, 40, device=cuda_device)
+    with torch.inference_mode():
+        first = m(x)
+    with torch.no_grad():
+        m.offset_conv.bias.copy_(torch.full((18,), 1.5))
+        m.regular_conv.weight.mul_(-2.0)
+    with torch.inference_mode():
+        again = m(x)
+    want = deform.fused_radarconv_reference(
+        x, m.offset_conv.weight, m.offset_conv.bias, m.modulator_conv.weight,
+        m.modulator_conv.bias, m.regular_conv.weight, BAND)
+    torch.cuda.synchronize()
+    assert not torch.allclose(first, again)
+    torch.testing.assert_close(again, want, **TOL[torch.float32])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -85,36 +150,70 @@ def test_k2_kernel_matches_plain(cuda_device, c, h, scale, band, dtype):
 
 def test_kernels_reject_what_they_do_not_take(cuda_device):
     x = torch.zeros(1, 9, 16, 16, device=cuda_device)
-    w = torch.zeros(18, 9, 3, 3, device=cuda_device)
     with pytest.raises(ValueError, match="channels"):
         hopper_deform.fused_radarconv(
-            x, w, torch.zeros(18, device=cuda_device),
-            torch.zeros(9, 9, 3, 3, device=cuda_device),
-            torch.zeros(9, device=cuda_device),
-            torch.zeros(9, 9, 3, 3, device=cuda_device), BAND)
+            x, torch.zeros(9, 81, 4, device=cuda_device),
+            torch.zeros(9, 4, device=cuda_device),
+            torch.zeros(81, 9, device=cuda_device), BAND)
+    with pytest.raises(TypeError, match="float32"):
+        hopper_deform.fused_radarconv(
+            x[:, :8], *(t.to(torch.bfloat16) for t in
+                        hopper_deform.pack_radarconv_weights(
+                            torch.zeros(18, 8, 3, 3), torch.zeros(18),
+                            torch.zeros(9, 8, 3, 3), torch.zeros(9),
+                            torch.zeros(8, 8, 3, 3))), BAND)
     with pytest.raises(ValueError, match="contiguous"):
         hopper_deform.deform_samples(
             x.transpose(2, 3), torch.zeros(1, 18, 16, 16, device=cuda_device),
             torch.zeros(1, 9, 16, 16, device=cuda_device), BAND)
 
 
+def k3_args(rng, b, h, n, dk, dv, device, dtype):
+    """q, k, v, bias, th1_w, th1_b, th2_w, th2_b with non-symmetric head
+    mixes."""
+    shapes = ((b, h, n, dk), (b, h, n, dk), (b, h, n, dv), (h, n, n),
+              (h, h), (h,), (h, h), (h,))
+    args = [torch.from_numpy((rng.randn(*s) * 0.5).astype(np.float32)).to(
+        device, dtype) for s in shapes]
+    if h > 1:
+        assert not torch.equal(args[4], args[4].T)
+    return args
+
+
+def check_k3(args, scale, dtype):
+    before = hopper_attention.fused_bias_attention.launches
+    got = hopper_attention.fused_bias_attention(*args, scale)
+    want = attention.reference_bias_attention(*args, scale)
+    torch.cuda.synchronize()
+    assert hopper_attention.fused_bias_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == args[2].shape
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("b,n", [(1, 100), (2, 16)])
 def test_k3_kernel_matches_plain(cuda_device, b, n, dtype):
-    rng = np.random.RandomState(n)
-    h = 8
-    shapes = ((b, h, n, 32), (b, h, n, 32), (b, h, n, 128), (h, n, n),
-              (h, h), (h,), (h, h), (h,))
-    args = [torch.from_numpy((rng.randn(*s) * 0.5).astype(np.float32)).to(
-        cuda_device, dtype) for s in shapes]
-    assert not torch.equal(args[4], args[4].T)     # non-symmetric head mix
-    before = hopper_attention.fused_bias_attention.launches
-    got = hopper_attention.fused_bias_attention(*args, 32 ** -0.5)
-    want = attention.reference_bias_attention(*args, 32 ** -0.5)
-    torch.cuda.synchronize()
-    assert hopper_attention.fused_bias_attention.launches == before + 1
-    assert got.dtype == dtype and got.shape == (b, h, n, 128)
-    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+    args = k3_args(np.random.RandomState(n), b, 8, n, 32, 128, cuda_device,
+                   dtype)
+    check_k3(args, 32 ** -0.5, dtype)
+
+
+# (batch, heads, N, dk, dv): every N of 7, 16, 49, 97, 100, 400, h of 1, 3,
+# 8, dk of 16, 32, 64 and dv of 8, 40, 128, 1024 at least once; N = 400
+# streams its keys in chunks; dk = 20 and dv = 36 take the scalar staging
+K3_DOMAIN = [(1, 8, 7, 32, 128), (2, 3, 16, 16, 40), (1, 1, 49, 64, 8),
+             (2, 8, 97, 32, 1024), (1, 3, 100, 64, 128), (1, 8, 400, 32, 128),
+             (2, 1, 400, 16, 40), (1, 8, 100, 16, 1024), (1, 8, 49, 64, 40),
+             (2, 3, 97, 16, 8), (1, 8, 400, 64, 1024), (1, 3, 49, 20, 36)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", K3_DOMAIN)
+def test_k3_kernel_domain(cuda_device, case, dtype):
+    b, h, n, dk, dv = case
+    args = k3_args(np.random.RandomState(n + dv), b, h, n, dk, dv,
+                   cuda_device, dtype)
+    check_k3(args, dk ** -0.5, dtype)
 
 
 def fps_cases():

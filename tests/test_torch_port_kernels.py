@@ -51,12 +51,15 @@ def k1_case(rng, b=2, h=16, w=24, c=3, cout=3, off_w=0.0, off_b=0.0):
 
 
 def port_k1(x, ok, ob, mk, mb, wp):
-    """Plain K1 on JAX-layout weights (HWIO -> OIHW)."""
+    """Plain K1 on JAX-layout weights (HWIO -> OIHW), packed as K1 reads
+    them."""
     def oihw(k):
         return torch.from_numpy(np.ascontiguousarray(k.transpose(3, 2, 0, 1)))
-    return hopper_deform.fused_radarconv(
-        torch.from_numpy(x), oihw(ok), torch.from_numpy(ob), oihw(mk),
-        torch.from_numpy(mb), oihw(wp), BAND).numpy()
+    packed = hopper_deform.pack_radarconv_weights(
+        oihw(ok), torch.from_numpy(ob), oihw(mk), torch.from_numpy(mb),
+        oihw(wp))
+    return hopper_deform.fused_radarconv(torch.from_numpy(x), *packed,
+                                         BAND).numpy()
 
 
 @pytest.mark.parametrize("off_w,off_b", [
