@@ -57,12 +57,34 @@
 //   convs outside the kernel; the projection stays a matmul, as in JAX.
 //   Bound: memory and latency.  RCNet blocks 4-7 at batch 1 are 40^2 and
 //   20^2 maps with C = 12 and 24; the largest call writes 0.35 MB of bf16.
-//   Design: one thread per (batch, tap, pixel), so even the 20^2 maps give
-//   3600 threads; neighbouring threads take neighbouring pixels of one tap,
-//   so offset/mask reads and sample writes coalesce, and the 4-corner
-//   gathers hit L1/L2.  band < 0 means no clip: the same kernel serves the
-//   exact (unbanded) path.
-//
+//   The first design, a thread per (batch, tap, pixel) looping over all C
+//   channels from global memory, gave 57 blocks at 40^2 and 15 at 20^2 on
+//   132 SMs, and each thread waited ~C rounds of L2 latency.
+//   Design:
+//   - A block takes (batch, an output tile of 8 or 4 rows x 8 pixels, a
+//     group of G channels), a thread per (tap, pixel): 576 or 288 threads,
+//     the tap uniform across each warp.  The plan
+//     (hopper_deform.deform_samples_plan, in Python so the CPU tests pin
+//     it) takes the largest G in 8, 4, 2, 1, then the taller tile, that
+//     still give two blocks per SM: G = 2 on 4x8 tiles at 40^2 with
+//     C = 12 (300 blocks), G = 1 on 4x8 at 20^2 with C = 24 (360).
+//   - Each thread reads its tap's offset and mask, clips the offset to the
+//     band, and forms its base corner, four bilinear weights and four
+//     in-image tests once; then it loops over the G channels, unrolled by
+//     the compile-time G, gathering the four corners from global memory
+//     (L1 and L2 hold the whole map at these sizes) and writing rows of the
+//     tile.  The same kernel serves every band and band = None (offsets
+//     unbounded): an out-of-image corner is skipped, so it reads 0.
+//   - Staging the band-limited window in shared memory by cp.async, the
+//     first design of this kernel's redesign, was built and measured on
+//     the H100 against this gather on the same tiles, and dropped: at
+//     band 4, bf16, the staged blocks' first phase (offsets, copies,
+//     barrier) took 1990-3470 cycles against 420-940, and the gather was
+//     0.5-1.4 us a call faster at both serving shapes in each of seven
+//     calls (kernels/sweep.py; PERF.md, K2's findings).  A map is 19-38 KB
+//     of bf16, which L2 holds between the calls that write and read it, so
+//     staging only added a copy and a barrier before the first sample.
+
 // The TPU kernels' row tiling, 8-aligned halos and per-image offset tiers
 // were TPU cost devices that change no value; a direct 4-corner gather
 // replaces them.
@@ -89,46 +111,6 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
 
 __device__ __forceinline__ float clip_band(float o, int band) {
   return band < 0 ? o : fminf(fmaxf(o, -(float)band), (float)band);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(256)
-deform_samples_kernel(const T* __restrict__ x, const T* __restrict__ off,
-                      const T* __restrict__ mask, T* __restrict__ out,
-                      int B, int C, int H, int W, int band) {
-  const int HW = H * W;
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= B * kTaps * HW) return;
-  const int p = idx % HW;
-  const int ki = (idx / HW) % kTaps;
-  const int b = idx / (HW * kTaps);
-  const int y = p / W, xq = p % W;
-
-  const float oy = clip_band(load_f32(off + (b * 2 * kTaps + 2 * ki) * HW + p), band);
-  const float ox = clip_band(load_f32(off + (b * 2 * kTaps + 2 * ki + 1) * HW + p), band);
-  const float m = load_f32(mask + (b * kTaps + ki) * HW + p);
-  const float fy = floorf(oy), fx = floorf(ox);
-  const float wy1 = oy - fy, wx1 = ox - fx;
-  // clamping the integer part keeps far-out offsets outside the image and
-  // the float->int cast in range
-  const int y0 = y + ki / 3 - 1 + (int)fminf(fmaxf(fy, -(float)(H + 2)), (float)(H + 2));
-  const int x0 = xq + ki % 3 - 1 + (int)fminf(fmaxf(fx, -(float)(W + 2)), (float)(W + 2));
-  const bool vy0 = y0 >= 0 && y0 < H, vy1 = y0 + 1 >= 0 && y0 + 1 < H;
-  const bool vx0 = x0 >= 0 && x0 < W, vx1 = x0 + 1 >= 0 && x0 + 1 < W;
-  const float w00 = (1.f - wy1) * (1.f - wx1), w01 = (1.f - wy1) * wx1;
-  const float w10 = wy1 * (1.f - wx1), w11 = wy1 * wx1;
-
-  const T* xb = x + (int64_t)b * C * HW;
-  T* ob = out + ((int64_t)b * kTaps + ki) * C * HW + p;
-  for (int c = 0; c < C; ++c) {
-    const T* xc = xb + c * HW;
-    float s = 0.f;
-    if (vy0 && vx0) s += load_f32(xc + y0 * W + x0) * w00;
-    if (vy0 && vx1) s += load_f32(xc + y0 * W + x0 + 1) * w01;
-    if (vy1 && vx0) s += load_f32(xc + (y0 + 1) * W + x0) * w10;
-    if (vy1 && vx1) s += load_f32(xc + (y0 + 1) * W + x0 + 1) * w11;
-    store(ob + c * HW, s * m);
-  }
 }
 
 // a K1 launch aims for this many warps in flight (132 SMs x 16)
@@ -426,17 +408,116 @@ cudaError_t launch_fused(const void* x, const float* wconv, const float* bconv,
                                     H, W, band, stream);
 }
 
-template <typename T>
-cudaError_t launch_samples(const void* x, const void* off, const void* mask,
-                           void* out, int B, int C, int H, int W, int band,
+// K2: the samples of one (batch, kTH x 8 output tile, group of kG channels)
+// a block, a thread per (tap, pixel), the four corners gathered from
+// global memory.
+constexpr int kSampTile = 8;                       // tile width
+
+template <typename T, int kTH, int kG>
+__global__ void __launch_bounds__(kTaps * kTH * kSampTile, 2)
+deform_samples_kernel(const T* __restrict__ x, const T* __restrict__ off,
+                      const T* __restrict__ mask, T* __restrict__ out,
+                      int C, int H, int W, int band) {
+  constexpr int kSampPix = kTH * kSampTile;        // a multiple of 32
+  PHASE(0);
+  const int groups = (C + kG - 1) / kG;
+  const int b = blockIdx.z / groups;
+  const int cg = (blockIdx.z - b * groups) * kG;   // first channel
+  const int y0 = blockIdx.y * kTH, x0 = blockIdx.x * kSampTile;
+  const int HW = H * W;
+  const int tid = threadIdx.x;
+
+  const int tap = tid / kSampPix, pix = tid % kSampPix;
+  const int y = y0 + pix / kSampTile, xq = x0 + pix % kSampTile;
+  if (y >= H || xq >= W) return;
+  const int p = y * W + xq;
+  // the wrapper keeps every index below 2^31
+  const float oy = clip_band(load_f32(off + (b * 2 * kTaps + 2 * tap) * HW + p),
+                             band);
+  const float ox = clip_band(
+      load_f32(off + (b * 2 * kTaps + 2 * tap + 1) * HW + p), band);
+  const float m = load_f32(mask + (b * kTaps + tap) * HW + p);
+  PHASE(1);
+
+  // the base corner and four bilinear weights, once for the kG channels
+  const float fy = floorf(oy), fx = floorf(ox);
+  const float wy1 = oy - fy, wx1 = ox - fx;     // the offset's own fraction
+  const float w00 = (1.f - wy1) * (1.f - wx1), w01 = (1.f - wy1) * wx1;
+  const float w10 = wy1 * (1.f - wx1), w11 = wy1 * wx1;
+  // clamping the integer part keeps far-out offsets outside the image and
+  // the float->int cast in range
+  const int yb = y + tap / 3 - 1 +
+      (int)fminf(fmaxf(fy, -(float)(H + 2)), (float)(H + 2));
+  const int xb = xq + tap % 3 - 1 +
+      (int)fminf(fmaxf(fx, -(float)(W + 2)), (float)(W + 2));
+  const bool vy0 = yb >= 0 && yb < H, vy1 = yb + 1 >= 0 && yb + 1 < H;
+  const bool vx0 = xb >= 0 && xb < W, vx1 = xb + 1 >= 0 && xb + 1 < W;
+  const bool v00 = vy0 && vx0, v01 = vy0 && vx1;
+  const bool v10 = vy1 && vx0, v11 = vy1 && vx1;
+  const int base = yb * W + xb;
+  PHASE(2);
+
+  T* ob = out + ((b * kTaps + tap) * C + cg) * HW + p;
+#pragma unroll
+  for (int g = 0; g < kG; ++g) {
+    if (cg + g < C) {
+      const T* xc = x + (b * C + cg + g) * HW + base;
+      float s = 0.f;
+      if (v00) s += load_f32(xc) * w00;
+      if (v01) s += load_f32(xc + 1) * w01;
+      if (v10) s += load_f32(xc + W) * w10;
+      if (v11) s += load_f32(xc + W + 1) * w11;
+      store(ob + g * HW, s * m);
+    }
+  }
+  PHASE(3);
+}
+
+template <typename T, int kTH, int kG>
+cudaError_t launch_samples(const T* x, const T* off, const T* mask, T* out,
+                           int B, int C, int H, int W, int band,
                            cudaStream_t stream) {
-  const int total = B * kTaps * H * W;
-  const int threads = 256;
-  deform_samples_kernel<T><<<(total + threads - 1) / threads, threads, 0,
-                             stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(off),
-      static_cast<const T*>(mask), static_cast<T*>(out), B, C, H, W, band);
+  constexpr int kSampThreads = kTaps * kTH * kSampTile;
+  const int groups = (C + kG - 1) / kG;
+  const dim3 grid((W + kSampTile - 1) / kSampTile, (H + kTH - 1) / kTH,
+                  B * groups);
+  if (grid.y > 65535 || (int64_t)B * groups > 65535)
+    return cudaErrorInvalidValue;
+  deform_samples_kernel<T, kTH, kG><<<grid, kSampThreads, 0, stream>>>(
+      x, off, mask, out, C, H, W, band);
   return cudaGetLastError();
+}
+
+template <typename T, int kTH>
+cudaError_t dispatch_group(const T* x, const T* off, const T* mask, T* out,
+                           int B, int C, int H, int W, int band, int group,
+                           cudaStream_t s) {
+  switch (group) {
+    case 1:
+      return launch_samples<T, kTH, 1>(x, off, mask, out, B, C, H, W, band, s);
+    case 2:
+      return launch_samples<T, kTH, 2>(x, off, mask, out, B, C, H, W, band, s);
+    case 4:
+      return launch_samples<T, kTH, 4>(x, off, mask, out, B, C, H, W, band, s);
+    case 8:
+      return launch_samples<T, kTH, 8>(x, off, mask, out, B, C, H, W, band, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <typename T>
+cudaError_t dispatch_samples(const void* x, const void* off, const void* mask,
+                             void* out, int B, int C, int H, int W, int band,
+                             int rows, int group, cudaStream_t s) {
+  auto xt = static_cast<const T*>(x);
+  auto ot = static_cast<const T*>(off);
+  auto mt = static_cast<const T*>(mask);
+  auto st = static_cast<T*>(out);
+  if (rows == 8)
+    return dispatch_group<T, 8>(xt, ot, mt, st, B, C, H, W, band, group, s);
+  if (rows == 4)
+    return dispatch_group<T, 4>(xt, ot, mt, st, B, C, H, W, band, group, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -461,16 +542,20 @@ int achelous_fused_radarconv(const void* x, const void* wconv,
                                     band, s));
 }
 
-// band < 0: no clip.  dtype as above.
+// band < 0: no clip.  dtype as above.  The launch plan comes from
+// hopper_deform.deform_samples_plan: tiles of `rows` (8 or 4) x 8 pixels,
+// `group` channels a block (1, 2, 4 or 8).
 int achelous_deform_samples(const void* x, const void* off, const void* mask,
                             void* out, int B, int C, int H, int W, int band,
-                            int dtype, void* stream) {
+                            int dtype, int rows, int group, void* stream) {
   if (B <= 0 || C <= 0 || H <= 0 || W <= 0 || (dtype != 0 && dtype != 1))
     return (int)cudaErrorInvalidValue;
   auto s = static_cast<cudaStream_t>(stream);
   return (int)(dtype == 0
-      ? launch_samples<float>(x, off, mask, out, B, C, H, W, band, s)
-      : launch_samples<__nv_bfloat16>(x, off, mask, out, B, C, H, W, band, s));
+      ? dispatch_samples<float>(x, off, mask, out, B, C, H, W, band, rows,
+                                group, s)
+      : dispatch_samples<__nv_bfloat16>(x, off, mask, out, B, C, H, W, band,
+                                        rows, group, s));
 }
 
 #if ACHELOUS_PHASE_CLOCKS

@@ -37,9 +37,10 @@ _I = ctypes.c_int
 SIGNATURES = {
     "achelous_fused_radarconv": ([_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                                   _I, _P], _I),
-    "achelous_deform_samples": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
-                                _I),
-    "achelous_farthest_point_sample": ([_P, _P, _P, _I, _I, _I, _P], _I),
+    "achelous_deform_samples": ([_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                                 _I, _P], _I),
+    "achelous_farthest_point_sample": ([_P, _P, _P, _I, _I, _I, _I, _I, _I,
+                                        _P], _I),
     "achelous_bias_attention": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                                  _I, _I, _I, ctypes.c_float, _I, _P], _I),
     "achelous_cuda_error_string": ([_I], ctypes.c_char_p),

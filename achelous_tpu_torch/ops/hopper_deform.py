@@ -15,7 +15,8 @@ synchronise.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -24,6 +25,15 @@ from achelous_tpu_torch.kernels import build
 FUSED_MAX_C = 8      # K1 keeps this many in/out channels in registers
 TAPS = 9
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# K2's launch (csrc/deform.cu deform_samples_kernel): tiles of 8 or 4
+# rows x 8 pixels, a thread per (tap, pixel), G channels a block
+SAMPLES_TILE = 8
+SAMPLES_ROWS = (8, 4)
+SAMPLES_GROUPS = (8, 4, 2, 1)
+# K2's plan aims for two blocks an SM: the best plans of kernels/sweep.py
+# at both serving shapes (one block an SM, with more channels a block, ran
+# 0.2-0.5 us slower on the H100)
+SAMPLES_BLOCKS_PER_SM = 2
 
 
 def _check_cuda(name: str, x: torch.Tensor, *others: torch.Tensor):
@@ -132,6 +142,36 @@ def fused_radarconv(x: torch.Tensor, wconv: torch.Tensor,
     return out
 
 
+class SamplesPlan(NamedTuple):
+    """K2's launch: tiles of `rows` x 8 pixels; `group` channels a block;
+    blocks."""
+    rows: int
+    group: int
+    blocks: int
+
+
+@functools.lru_cache(maxsize=256)
+def deform_samples_plan(b: int, c: int, h: int, w: int,
+                        sms: int) -> SamplesPlan:
+    """K2's launch plan for x [b, c, h, w] on a card of `sms` SMs: the
+    largest G in SAMPLES_GROUPS (not past C rounded up to a power of two),
+    then the taller tile, that still give SAMPLES_BLOCKS_PER_SM blocks an
+    SM, else G = 1 on 4-row tiles."""
+    cap = 1 << (c - 1).bit_length()
+    tiles = {rows: -(-h // rows) * -(-w // SAMPLES_TILE)
+             for rows in SAMPLES_ROWS}
+    plans = [SamplesPlan(rows, g, b * tiles[rows] * -(-c // g))
+             for g in SAMPLES_GROUPS if g <= cap for rows in SAMPLES_ROWS]
+    return next((p for p in plans
+                 if p.blocks >= SAMPLES_BLOCKS_PER_SM * sms), plans[-1])
+
+
+@functools.lru_cache(maxsize=16)
+def sm_count(device: torch.device) -> int:
+    """The number of SMs of a CUDA device."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def deform_samples(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                    band: Optional[int]) -> torch.Tensor:
     """K2: modulated bilinear samples.  x [B,C,H,W], offset [B,18,H,W],
@@ -140,6 +180,15 @@ def deform_samples(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     if x.device.type == "cpu":
         from achelous_tpu_torch.ops.deform import banded_deform_samples
         return banded_deform_samples(x, offset, mask, band)
+    return launch_samples(x, offset, mask, band, None)
+
+
+def launch_samples(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                   band: Optional[int],
+                   plan: Optional[SamplesPlan]) -> torch.Tensor:
+    """K2 on CUDA tensors with a launch plan; None takes
+    `deform_samples_plan`.  `kernels/sweep.py` and the CUDA tests pass
+    others."""
     _check_cuda("deform_samples", x, offset, mask)
     if x.dim() != 4:
         raise ValueError(f"deform_samples: x must be [B,C,H,W], got "
@@ -159,12 +208,15 @@ def deform_samples(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     out = torch.empty((b, TAPS * c, h, w), dtype=x.dtype, device=x.device)
     if out.numel() == 0:
         return out
+    if plan is None:
+        plan = deform_samples_plan(b, c, h, w, sm_count(x.device))
     lib = build.load()
     with torch.cuda.device(x.device):
         err = lib.achelous_deform_samples(
             build.ptr(x), build.ptr(offset), build.ptr(mask), build.ptr(out),
             b, c, h, w,
-            -1 if band is None else band, _DTYPE_CODE[x.dtype],
+            -1 if band is None else band, _DTYPE_CODE[x.dtype], plan.rows,
+            plan.group,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     build.raise_on("deform_samples", err)
     deform_samples.launches += 1

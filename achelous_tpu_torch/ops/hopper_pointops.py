@@ -6,7 +6,7 @@ achelous_tpu/ops/pallas_pointops.py; source in csrc/pointops.cu).
 
 A tensor on the CPU goes to the plain PyTorch version in ops/pointops.py.
 A CUDA tensor goes to the kernel or the call raises: nothing falls back.
-The wrapper counts its kernel launches in its `launches` attribute.
+The kernel's launches are counted in `farthest_point_sample.launches`.
 
 The kernel takes float32 xyz (the PointNet++ branch keeps xyz in float32
 whatever the compute dtype) and returns int64 indices with exactly the
@@ -15,15 +15,40 @@ plain version's values.
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
 from achelous_tpu_torch.kernels import build
 
-# xyz and distances of one batch element live in shared memory: 16 bytes
-# a point, under the 227 KB a block can opt into
+# a float4 copy of one batch element's points lives in shared memory: 16
+# bytes a point, under the 227 KB a block can opt into
 FPS_MAX_POINTS = 12288
+# points a thread the kernel is compiled for, and the most threads each
+# runs with (<= 8 points: 1024 threads at <= 64 registers; 16 and 24: 512
+# threads at <= 128), as csrc/pointops.cu fps_max_threads gives them (the
+# CUDA tests hold the two to each other)
+FPS_PPT = (1, 2, 4, 8, 16, 24)
+FPS_MAX_THREADS = {1: 1024, 2: 1024, 4: 1024, 8: 1024, 16: 512, 24: 512}
+# points a thread the plan aims for: fewer make the block wider and its
+# barrier and cross-warp reduce slower, more lengthen each thread's update
+# (kernels/sweep.py: best at 512 and at 128 points on the H100)
+FPS_POINTS = 4
+
+
+def fps_plan(n: int, points: int = FPS_POINTS) -> Tuple[int, int]:
+    """K4's launch for N = n points: (threads a block, points a thread).
+    The block takes ~n / `points` threads (a multiple of 32, at least one
+    warp, at most 1024), each thread the fewest points from FPS_PPT that
+    cover N within its variant's thread limit."""
+    if not 1 <= n <= FPS_MAX_POINTS:
+        raise ValueError(f"fps_plan: N must be 1..{FPS_MAX_POINTS}, got {n}")
+
+    def warps(k):
+        return max(32, (-(-n // k) + 31) // 32 * 32)
+    limit = min(1024, warps(points))
+    return next((warps(ppt), ppt) for ppt in FPS_PPT
+                if warps(ppt) <= min(limit, FPS_MAX_THREADS[ppt]))
 
 
 def farthest_point_sample(xyz: torch.Tensor, npoint: int,
@@ -35,6 +60,18 @@ def farthest_point_sample(xyz: torch.Tensor, npoint: int,
         from achelous_tpu_torch.ops.pointops import \
             farthest_point_sample as plain
         return plain(xyz, npoint, valid)
+    return launch_fps(xyz, npoint, valid, None)
+
+
+def launch_fps(xyz: torch.Tensor, npoint: int,
+               valid: Optional[torch.Tensor],
+               plan: Optional[Tuple[int, int]],
+               tree: Optional[bool] = None) -> torch.Tensor:
+    """K4 on CUDA tensors with a launch plan (threads, points a thread);
+    None takes `fps_plan(N)`.  `tree`: the cross-warp compare tree (2-4
+    warps) rather than redux.sync; None takes it up to 4 warps, where
+    kernels/sweep.py found it faster on the H100.
+    `kernels/sweep.py` and the CUDA tests pass others."""
     if xyz.device.type != "cuda":
         raise ValueError(f"farthest_point_sample: tensors must be on the CPU "
                          f"or a CUDA device, got {xyz.device}")
@@ -65,6 +102,9 @@ def farthest_point_sample(xyz: torch.Tensor, npoint: int,
         if not t.is_contiguous():
             raise ValueError("farthest_point_sample: tensors must be "
                              "contiguous")
+    threads, ppt = fps_plan(n) if plan is None else plan
+    if tree is None:
+        tree = threads <= 128
     out = torch.empty((b, npoint), dtype=torch.int64, device=xyz.device)
     if out.numel() == 0:
         return out
@@ -72,7 +112,7 @@ def farthest_point_sample(xyz: torch.Tensor, npoint: int,
     with torch.cuda.device(xyz.device):
         err = lib.achelous_farthest_point_sample(
             build.ptr(xyz), None if valid is None else build.ptr(valid),
-            build.ptr(out), b, n, npoint,
+            build.ptr(out), b, n, npoint, threads, ppt, int(tree),
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
     build.raise_on("farthest_point_sample", err)
     farthest_point_sample.launches += 1

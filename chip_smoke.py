@@ -13,7 +13,9 @@ point on each of three paths (320x320, bf16, batch 1):
     EF-GDF-PN-S0   K1 x4, K2 x4, K3 x4
 
 and checks them against the same weights run in float32 through the plain
-versions on the CPU.  K1 is timed as its single launch on weights packed
+versions on the CPU.  K2 is also held against its plain version on the
+exact route (band None) at C = 3, 320^2, and K4 at batch 3; K2's and K4's
+launch plans are logged.  K1 is timed as its single launch on weights packed
 once (the pack, which DeformableConv2d caches, is timed once beside it);
 each path logs its kernel launches a request and its kernels/frame under
 torch.profiler.  Any failure raises; the last line of a passing run is
@@ -34,6 +36,8 @@ import subprocess
 
 import numpy as np
 import torch
+
+from achelous_tpu_torch.kernels.timing import cuda_ms, device_ms
 
 REQUESTS = 8
 BAND = 4
@@ -100,38 +104,6 @@ def wrappers():
             "deform_samples": hopper_deform.deform_samples,
             "fused_bias_attention": hopper_attention.fused_bias_attention,
             "farthest_point_sample": hopper_pointops.farthest_point_sample}
-
-
-def cuda_ms(fn, iters: int = 100, warmup: int = 10,
-            hold_device: bool = False) -> float:
-    """ms per call of `fn` between CUDA events, after warm-up.  By default
-    the events see calls as the host issues them, launch overhead
-    included.  With `hold_device` a sleep kernel first holds the GPU while
-    the host queues every call, so the events bracket back-to-back device
-    work: the device time of one call.  Then `iters` times the launches of
-    one call must stay under the ~1000 launches the CUDA runtime queues; past
-    that the host blocks and its own pace leaks into the reading."""
-    for _ in range(warmup):
-        fn()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    if hold_device:
-        torch.cuda._sleep(200_000_000)      # ~0.1 s of GPU cycles
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
-
-
-def device_ms(fn, iters: int = 5) -> float:
-    """Median device time of one call over 5 readings of `iters` queued
-    calls (the plain versions launch ~100 kernels a call; plain FPS
-    ~10 a step, so it is read one call at a time)."""
-    return float(np.median([cuda_ms(fn, iters=iters, warmup=2,
-                                    hold_device=True) for _ in range(5)]))
 
 
 def nbytes(*ts) -> int:
@@ -274,6 +246,11 @@ def check_deform_kernels(dev, rng):
             # time the serving dtype at the largest-offset regime: device
             # time per call, and the rate the host issues calls at
             a = [x.to(torch.bfloat16) for x in args]
+            if name == "deform_samples":
+                plan = hopper_deform.deform_samples_plan(
+                    1, c, h, h, hopper_deform.sm_count(dev))
+                log(f"kernel deform_samples block {block} C={c} {h}x{h} "
+                    f"bf16: plan {plan}")
             kernel = bind(a)
             t_k, t_p = timed(name, f"block {block} C={c} {h}x{h} bf16",
                              kernel, lambda: plain(*a, BAND))
@@ -289,12 +266,37 @@ def check_deform_kernels(dev, rng):
             tb, to = bound(nbytes(*a, out), flops(a), torch.bfloat16)
             t_bytes.append(tb)
             t_ops.append(to)
+        if name == "deform_samples":
+            worst = check_exact_samples(dev, rng, worst, top)
         log(f"kernel {name}: max abs err f32 {worst[torch.float32]:.3g}, "
             f"bf16 {worst[torch.bfloat16]:.3g} (max |out| "
             f"{top[torch.bfloat16]:.3g})")
         results[name] = result(worst[torch.float32], ms, plain_ms, t_bytes,
                                t_ops)
     return results
+
+
+def check_exact_samples(dev, rng, worst, top):
+    """K2 on the exact route (band None), which a reference checkpoint
+    takes at every RCNet block: block 0's shape, C = 3 at 320^2, offsets
+    past the band.  Timed and logged; not part of a serving frame."""
+    from achelous_tpu_torch.ops import deform, hopper_deform
+    kernel = wrappers()["deform_samples"]
+    args = k2_case(rng, 3, 320, 9.0, dev)
+    for dt in (torch.float32, torch.bfloat16):
+        a = [x.to(dt) for x in args]
+        got = kernel(*a, None)
+        want = deform.banded_deform_samples(*a, None)
+        torch.cuda.synchronize()
+        worst[dt] = max(worst[dt], check(
+            f"deform_samples band None C=3 320x320 {dt}", got, want, dt, top))
+    plan = hopper_deform.deform_samples_plan(1, 3, 320, 320,
+                                             hopper_deform.sm_count(dev))
+    log(f"kernel deform_samples band None C=3 320x320 bf16: plan {plan}")
+    timed("deform_samples", "band None C=3 320x320 bf16",
+          lambda: kernel(*a, None),
+          lambda: deform.banded_deform_samples(*a, None))
+    return worst
 
 
 def check_attention_kernel(dev, rng):
@@ -347,6 +349,10 @@ def k4_cases(rng):
         cases.append((f"valid {n}->{s}", rng.randn(1, n, 3), s,
                       rng.rand(1, n) > 0.3))
         cases.append((f"identical {n}->{s}", np.ones((1, n, 3)), s, None))
+    # batch 3: a block a batch element
+    cases.append(("random B=3 512->128", rng.rand(3, 512, 3), 128, None))
+    cases.append(("valid B=3 512->128", rng.randn(3, 512, 3), 128,
+                  rng.rand(3, 512) > 0.3))
     return [(lbl, x.astype(np.float32), s, v) for lbl, x, s, v in cases]
 
 
@@ -354,8 +360,12 @@ def check_fps_kernel(dev, rng):
     """K4's indices equal its plain version's on the card, at the four
     set-abstraction shapes, on random points, resampled duplicates, a valid
     mask and identical points."""
+    from achelous_tpu_torch.ops.hopper_pointops import fps_plan
     from achelous_tpu_torch.ops.pointops import farthest_point_sample as plain
     kernel = wrappers()["farthest_point_sample"]
+    log("kernel farthest_point_sample plans (threads, points a thread): "
+        + ", ".join(f"N={n} {fps_plan(n)}" for n, _ in K4_SHAPES)
+        + "; cross-warp winner by compare tree up to 4 warps")
     cases = k4_cases(rng)
     for label, xyz, npoint, valid in cases:
         x = torch.from_numpy(xyz).to(dev)

@@ -5,11 +5,16 @@ at the shapes the serving paths give them (320x320, batch 1):
                            (packed weights; and ragged 37x53 maps, Cout != C,
                            bands 0, 4, 6; the module's re-pack after copy_)
   K2 deform_samples        RCNet blocks 4-7: C = 12 at 40^2, C = 24 at 20^2
+                           (and C 1-40 on ragged maps, bands 0-6 and None,
+                           C = 3 at 320^2 unbanded, offsets past the image,
+                           an unaligned input; every tile height and G)
   K3 fused_bias_attention  EfficientFormerV2 Attention4D: h = 8, N = 100,
                            dk = 32, dv = 128 (and N = 16 at batch 2; and
                            N up to 400, h 1-8, dk 16-64, dv 8-1024)
   K4 farthest_point_sample PointNet++: 512 -> 128 -> 32 -> 8 -> 4 points,
-                           indices exactly equal
+                           indices exactly equal (and N from 1 to 12288 at
+                           batch 1 and 3, with ties, masks, no valid point;
+                           both cross-warp reductions; the thread limits)
 
 Every test is marked `cuda` and skips where no GPU is visible.  This file
 imports no JAX, so it also runs on a machine without it:
@@ -148,6 +153,85 @@ def test_k2_kernel_matches_plain(cuda_device, c, h, scale, band, dtype):
     torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
 
 
+def check_k2(args, band, dtype):
+    before = hopper_deform.deform_samples.launches
+    got = hopper_deform.deform_samples(*args, band)
+    want = deform.banded_deform_samples(*args, band)
+    torch.cuda.synchronize()
+    assert hopper_deform.deform_samples.launches == before + 1
+    b, c, h, w = args[0].shape
+    assert got.dtype == dtype and got.shape == (b, 9 * c, h, w)
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+# (batch, C, H, W, band, offset scale): C of 1, 3, 5, 12, 24, 40 (groups
+# of 8, 4, 2, 1 channels that do not divide C), ragged maps (no whole 8x8
+# tile at the edges), bands 0-6 and None, offsets far past the image
+# (scale 400)
+K2_DOMAIN = [(1, 1, 37, 53, 0, 0.7), (2, 3, 37, 53, 1, 3.0),
+             (1, 5, 37, 53, 2, 9.0), (1, 12, 1, 70, 3, 3.0),
+             (1, 40, 1, 70, None, 9.0), (1, 24, 37, 53, 5, 0.7),
+             (1, 40, 20, 20, 6, 9.0), (1, 5, 250, 283, 6, 3.0),
+             (1, 3, 250, 283, None, 3.0), (1, 3, 320, 320, None, 9.0),
+             (1, 3, 320, 320, None, 400.0), (2, 12, 40, 40, 4, 400.0),
+             (1, 24, 20, 20, None, 40.0), (1, 12, 40, 40, 0, 3.0),
+             (3, 5, 13, 9, 2, 3.0), (1, 1, 1, 1, None, 3.0),
+             (1, 40, 16, 24, 4, 3.0), (2, 24, 20, 20, 6, 400.0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", K2_DOMAIN)
+def test_k2_kernel_domain(cuda_device, case, dtype):
+    """The plans the wrapper takes over its domain: groups of 1-8
+    channels on 8- and 4-row tiles, banded and band None (among them
+    C = 3 at 320^2, the route of reference checkpoints)."""
+    b, c, h, w, band, scale = case
+    rng = np.random.RandomState(c * h + w)
+    args = [torch.from_numpy(a.astype(np.float32)).to(cuda_device, dtype)
+            for a in (rng.randn(b, c, h, w),
+                      (rng.rand(b, 18, h, w) * 2 - 1) * scale,
+                      rng.rand(b, 9, h, w) * 2)]
+    check_k2(args, band, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows", hopper_deform.SAMPLES_ROWS)
+@pytest.mark.parametrize("group", hopper_deform.SAMPLES_GROUPS)
+@pytest.mark.parametrize("band", [3, None])
+def test_k2_kernel_every_variant(cuda_device, band, group, rows, dtype):
+    """Each (tile rows, G) variant on a ragged 21x35 map with C = 5 (no G
+    above 1 divides it), band 3 and None, whatever plan
+    deform_samples_plan would pick."""
+    rng = np.random.RandomState(group + rows)
+    b, c, h, w = 2, 5, 21, 35
+    args = [torch.from_numpy(a.astype(np.float32)).to(cuda_device, dtype)
+            for a in (rng.randn(b, c, h, w),
+                      (rng.rand(b, 18, h, w) * 2 - 1) * 5,
+                      rng.rand(b, 9, h, w) * 2)]
+    plan = hopper_deform.SamplesPlan(rows, group, 0)
+    got = hopper_deform.launch_samples(*args, band, plan)
+    want = deform.banded_deform_samples(*args, band)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("band", [BAND, None])
+def test_k2_kernel_unaligned_input(cuda_device, band, dtype):
+    """x one element past an aligned address: the gather reads elements,
+    so no alignment is asked of the input."""
+    rng = np.random.RandomState(5)
+    c, h = 12, 40
+    flat = torch.from_numpy(rng.randn(c * h * h + 1).astype(np.float32)).to(
+        cuda_device, dtype)
+    x = flat[1:].view(1, c, h, h)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    off, mask = (torch.from_numpy(a.astype(np.float32)).to(cuda_device, dtype)
+                 for a in ((rng.rand(1, 18, h, h) * 2 - 1) * 6,
+                           rng.rand(1, 9, h, h) * 2))
+    check_k2([x, off, mask], band, dtype)
+
+
 def test_kernels_reject_what_they_do_not_take(cuda_device):
     x = torch.zeros(1, 9, 16, 16, device=cuda_device)
     with pytest.raises(ValueError, match="channels"):
@@ -241,6 +325,100 @@ def test_k4_kernel_indices_equal_plain(cuda_device, case):
     assert hopper_pointops.farthest_point_sample.launches == before + 1
     assert got.dtype == torch.int64 and got.shape == (x.shape[0], npoint)
     assert torch.equal(got, want), name
+
+
+def check_k4(xyz, npoint, valid, device):
+    x = torch.from_numpy(xyz.astype(np.float32)).to(device)
+    v = None if valid is None else torch.from_numpy(valid).to(device)
+    before = hopper_pointops.farthest_point_sample.launches
+    got = hopper_pointops.farthest_point_sample(x, npoint, v)
+    want = pointops.farthest_point_sample(x, npoint, v)
+    torch.cuda.synchronize()
+    assert hopper_pointops.farthest_point_sample.launches == before + 1
+    assert got.dtype == torch.int64 and got.shape == (x.shape[0], npoint)
+    assert torch.equal(got, want)
+
+
+K4_NS = (1, 31, 32, 33, 127, 129, 511, 512, 513, 4096, 12288)
+# each N at batch 1 and 3, on random points, coarse coordinates (equal
+# distances), duplicates, a valid mask, and the extremes: identical
+# points, fewer valid points than npoint, no valid point at all
+K4_KINDS = ("random", "coarse", "duplicates", "valid", "identical",
+            "few_valid", "none_valid")
+
+
+def k4_points(rng, kind, b, n):
+    valid = None
+    if kind == "random":
+        xyz = rng.rand(b, n, 3)
+    elif kind == "coarse":
+        xyz = np.round(rng.rand(b, n, 3) * 4) / 4
+    elif kind == "duplicates":
+        base = np.round(rng.rand(max(1, n // 8), 3) * 16) / 16
+        xyz = base[rng.randint(0, len(base), (b, n))]
+    elif kind == "identical":
+        xyz = np.full((b, n, 3), 0.5)
+    else:
+        xyz = rng.randn(b, n, 3)
+        valid = rng.rand(b, n) > {"valid": 0.3, "few_valid": 0.97,
+                                  "none_valid": 2.0}[kind]
+    return xyz, valid
+
+
+@pytest.mark.parametrize("b", [1, 3])
+@pytest.mark.parametrize("n", K4_NS)
+@pytest.mark.parametrize("kind", K4_KINDS)
+def test_k4_kernel_domain(cuda_device, kind, n, b):
+    """Every points-a-thread variant the plan takes (N up to
+    FPS_MAX_POINTS), indices exactly equal to the plain version's."""
+    rng = np.random.RandomState(n + b)
+    xyz, valid = k4_points(rng, kind, b, n)
+    npoint = 4 if n == 1 else min(max(8, n // 4), 128)
+    check_k4(xyz, npoint, valid, cuda_device)
+
+
+@pytest.mark.parametrize("ppt", hopper_pointops.FPS_PPT)
+@pytest.mark.parametrize("wide", [False, True])
+def test_k4_kernel_every_variant(cuda_device, ppt, wide):
+    """Each points-a-thread variant at one warp and at its most threads
+    (FPS_MAX_THREADS, which the kernel must take), with N a few points
+    short of filling them, on a valid mask, whatever plan fps_plan would
+    pick."""
+    threads = hopper_pointops.FPS_MAX_THREADS[ppt] if wide else 32
+    n = min(threads * ppt, hopper_pointops.FPS_MAX_POINTS) - 3
+    rng = np.random.RandomState(ppt + threads)
+    x = torch.from_numpy(rng.rand(2, n, 3).astype(np.float32)).to(cuda_device)
+    v = torch.from_numpy(rng.rand(2, n) > 0.2).to(cuda_device)
+    got = hopper_pointops.launch_fps(x, 64, v, (threads, ppt))
+    want = pointops.farthest_point_sample(x, 64, v)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("ppt", hopper_pointops.FPS_PPT)
+def test_k4_thread_limits_match_the_kernel(cuda_device, ppt):
+    """csrc/pointops.cu fps_max_threads refuses one warp more than
+    FPS_MAX_THREADS gives a variant."""
+    x = torch.rand(1, 64, 3, device=cuda_device)
+    with pytest.raises(RuntimeError):
+        hopper_pointops.launch_fps(
+            x, 8, None, (hopper_pointops.FPS_MAX_THREADS[ppt] + 32, ppt))
+
+
+@pytest.mark.parametrize("tree", [True, False])
+@pytest.mark.parametrize("threads,ppt", [(64, 8), (96, 4), (128, 4)])
+@pytest.mark.parametrize("kind", ["random", "coarse", "valid"])
+def test_k4_cross_warp_reductions(cuda_device, kind, threads, ppt, tree):
+    """Blocks of 2-4 warps take the cross-warp winner by the compare tree
+    or by redux.sync: indices equal the plain version's either way."""
+    rng = np.random.RandomState(threads + ppt)
+    xyz, valid = k4_points(rng, kind, 2, threads * ppt - 5)
+    x = torch.from_numpy(xyz.astype(np.float32)).to(cuda_device)
+    v = None if valid is None else torch.from_numpy(valid).to(cuda_device)
+    got = hopper_pointops.launch_fps(x, 96, v, (threads, ppt), tree)
+    want = pointops.farthest_point_sample(x, 96, v)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_k3_k4_reject_what_they_do_not_take(cuda_device):
