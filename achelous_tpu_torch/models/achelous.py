@@ -124,16 +124,39 @@ def _device(device: torch.device | str) -> torch.device:
 
 def create_model(cfg: AchelousConfig,
                  device: torch.device | str = torch.device("cuda"),
-                 generator: Optional[torch.Generator] = None) -> Achelous:
-    """The model in eval mode on `device` (the GPU unless the CPU is asked
-    for), parameters drawn from `generator` (seed 0 when None) as the JAX
-    initializers draw them, then cast to `cfg.dtype`."""
+                 generator: Optional[torch.Generator] = None,
+                 train: bool = False) -> Achelous:
+    """The model on `device` (the GPU unless the CPU is asked for),
+    parameters drawn from `generator` (seed 0 when None) as the JAX
+    initializers draw them.  For serving: in eval mode, frozen, cast to
+    `cfg.dtype`.  With `train`: in train mode (batch statistics), float32
+    parameters that take gradients; `forward_compute` runs it in
+    `cfg.dtype`."""
     device = _device(device)
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     model = init_params(Achelous(cfg), generator)
+    if train:
+        return model.train().to(device)
     return cast_compute(model.eval().requires_grad_(False).to(device),
                         cfg.dtype)
+
+
+def forward_compute(model: Achelous, image: torch.Tensor, radar: torch.Tensor,
+                    points: torch.Tensor):
+    """The forward of a model with float32 parameters in `model.cfg.dtype`,
+    as the flax modules compute: the inputs and every parameter but the
+    BatchNorms' (float32, ops/norm.py) are cast to that dtype at use, and
+    autograd carries the gradients back to the float32 parameters.  So K1
+    and K2 see one dtype, the one they serve in."""
+    dtype = model.cfg.dtype
+    args = tuple(t.to(dtype) for t in (image, radar, points))
+    if dtype == torch.float32:
+        return model(*args)
+    norms = {n for n, m in model.named_modules() if isinstance(m, BatchNorm)}
+    params = {n: p if n.rpartition(".")[0] in norms else p.to(dtype)
+              for n, p in model.named_parameters()}
+    return torch.func.functional_call(model, params, args)
 
 
 def example_inputs(cfg: AchelousConfig, batch: int = 1,

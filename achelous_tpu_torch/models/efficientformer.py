@@ -238,6 +238,8 @@ class Mlp4D(nn.Module):
 class EFBlock(nn.Module):
     """FFN block, or attention + FFN block, each branch scaled by a layer
     scale that starts at 1e-5."""
+    # flax keeps the layer scales as [dim] vectors: no weight decay
+    FLAX_VECTORS = ("layer_scale_1", "layer_scale_2")
 
     def __init__(self, dim: int, mlp_ratio: float, use_attn: bool,
                  resolution: int, stride: Optional[int] = None):

@@ -16,6 +16,16 @@ whose row tiling and offset tiers are TPU cost devices and are not ported.
 The bilinear weights are taken from the offset's own fractional part,
 `o - floor(o)`, so they do not lose bits to the pixel coordinate.
 
+The offset's gradient follows the JAX package's where the two differ: at
+an integer offset inside the band.  There JAX differentiates its hat
+weights `max(0, 1 - |o - d|)` with `jnp.abs`'s slope 1 at 0 and
+`jnp.maximum`'s half slope at a tie, which gives `-v(o) + (v(o+1) -
+v(o-1)) / 2` along each axis, where `o - floor(o)` gives the one-sided
+`v(o+1) - v(o)`.  Every offset is integer at the zero initialisation of
+the offset convs, so the first training step depends on it.
+`banded_deform_samples` adds the difference as a term whose value is 0
+(`_TieSlope`), only when the offset takes a gradient.
+
 Both functions compute in float32 and return the input's dtype, as the
 kernels do.
 """
@@ -60,18 +70,67 @@ def banded_deform_samples(x: torch.Tensor, offset: torch.Tensor,
     x0 = (torch.arange(w, device=dev).view(1, 1, 1, w)
           + (taps % 3 - 1).view(1, TAPS, 1, 1)
           + fx.clamp(-(w + 2), w + 2).long())
-    acc = None
+
+    def corner(src, dy, dx):
+        """src at (y0 + dy, x0 + dx) [B,C,9,H,W], and where that lies in
+        the image [B,9,H,W]."""
+        yi, xi = y0 + dy, x0 + dx
+        valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
+        idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1))
+        idx = idx.reshape(b, 1, TAPS * h * w).expand(b, c, -1)
+        return torch.gather(src, 2, idx).reshape(b, c, TAPS, h, w), valid
+
+    ties = (band is not None and torch.is_grad_enabled()
+            and offset.requires_grad)
+    acc, gathered = None, {}
     for dy, wy in ((0, 1.0 - wy1), (1, wy1)):
         for dx, wx in ((0, 1.0 - wx1), (1, wx1)):
-            yi, xi = y0 + dy, x0 + dx
-            valid = (yi >= 0) & (yi < h) & (xi >= 0) & (xi < w)
-            idx = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1))
-            idx = idx.reshape(b, 1, TAPS * h * w).expand(b, c, -1)
-            v = torch.gather(xf, 2, idx).reshape(b, c, TAPS, h, w)
+            v, valid = corner(xf, dy, dx)
+            if ties:
+                gathered[dy, dx] = v, valid
             t = v * (wy * wx * valid)[:, None]
             acc = t if acc is None else acc + t
+    if ties:
+        with torch.no_grad():
+            slopes = _tie_slopes(lambda dy, dx: gathered.get((dy, dx))
+                                 or corner(xf, dy, dx), wy1, wx1)
+        acc = (acc + _TieSlope.apply(oy[:, None], slopes[0])
+               + _TieSlope.apply(ox[:, None], slopes[1]))
     acc = acc * mask.float()[:, None]                # [B,C,9,H,W]
     return acc.transpose(1, 2).reshape(b, TAPS * c, h, w).to(x.dtype)
+
+
+def _tie_slopes(corner, wy1, wx1):
+    """What JAX's offset gradient adds to the one-sided one at integer
+    offsets, per channel, along y and x ([B,C,9,H,W] each; 0 where the
+    offset is not integer): -(v(o+1) + v(o-1)) / 2 along the axis, the
+    other axis interpolated."""
+    def at(dy, dx):
+        v, valid = corner(dy, dx)
+        return v * valid[:, None]
+
+    wy = (1.0 - wy1)[:, None], wy1[:, None]
+    wx = (1.0 - wx1)[:, None], wx1[:, None]
+    along_y = sum(wx[dx] * (at(1, dx) + at(-1, dx)) for dx in (0, 1))
+    along_x = sum(wy[dy] * (at(dy, 1) + at(dy, -1)) for dy in (0, 1))
+    return (torch.where((wy1 == 0)[:, None], -0.5 * along_y, 0.0),
+            torch.where((wx1 == 0)[:, None], -0.5 * along_x, 0.0))
+
+
+class _TieSlope(torch.autograd.Function):
+    """0 of `slope`'s shape, whose gradient w.r.t. `o` (broadcast over
+    `slope`'s channel axis 1) is `slope`: a slope added to an offset's
+    gradient without touching a value."""
+
+    @staticmethod
+    def forward(ctx, o, slope):
+        ctx.save_for_backward(slope)
+        return torch.zeros_like(slope)
+
+    @staticmethod
+    def backward(ctx, g):
+        slope, = ctx.saved_tensors
+        return (g * slope).sum(1, keepdim=True), None
 
 
 def projection_matrix(weight: torch.Tensor) -> torch.Tensor:

@@ -8,6 +8,14 @@ A tensor on the CPU goes to the plain PyTorch version in ops/deform.py.  A
 CUDA tensor goes to the kernel or the call raises: nothing falls back.
 Each wrapper counts its kernel launches in its `launches` attribute.
 
+Where a gradient is asked for, each wrapper is a `torch.autograd.Function`
+(`FusedRadarConv`, `DeformSamples`) built as the JAX package's
+`custom_vjp`s (`_fused_fwd`/`_fused_bwd`, `_cfio_fwd`/`_cfio_bwd`): the
+forward is the kernel and saves only its inputs; the backward runs the
+plain version again under autograd and pulls the output's gradient back
+through it.  Neither JAX kernel has a backward kernel, and neither has one
+here.  On the CPU the Functions' forward is the plain version too.
+
 The kernels take bf16 or float32 and compute in float32.  Outputs are
 allocated here; the kernels launch on the current stream and do not
 synchronise.
@@ -95,16 +103,61 @@ def unpack_radarconv_weights(wconv: torch.Tensor, bconv: torch.Tensor,
                  (w_off, b_off, w[:, 2], bconv[:, 2], weight))
 
 
+def _wants_grad(*ts: torch.Tensor) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
+
+
+def _pullback(ctx, plain, g: torch.Tensor):
+    """The gradients of `plain` at the inputs `ctx` saved, for those that
+    need one (JAX's `jax.vjp` of the plain composition)."""
+    need = ctx.needs_input_grad[:len(ctx.saved_tensors)]
+    with torch.enable_grad():
+        ins = [t.detach().requires_grad_(n)
+               for t, n in zip(ctx.saved_tensors, need)]
+        grads = iter(torch.autograd.grad(
+            plain(*ins), [t for t, n in zip(ins, need) if n], g))
+    return tuple(next(grads) if n else None for n in need)
+
+
+def _plain_radarconv(band: int):
+    from achelous_tpu_torch.ops.deform import fused_radarconv_reference
+
+    def plain(x, wconv, bconv, wproj):
+        return fused_radarconv_reference(
+            x, *unpack_radarconv_weights(wconv, bconv, wproj), band)
+    return plain
+
+
+class FusedRadarConv(torch.autograd.Function):
+    """K1 with a gradient: the kernel forward; the backward is the autograd
+    of `fused_radarconv_reference` on the unpacked weights, which reaches
+    the module's own conv parameters through the pack."""
+
+    @staticmethod
+    def forward(ctx, x, wconv, bconv, wproj, band):
+        ctx.band = band
+        ctx.save_for_backward(x, wconv, bconv, wproj)
+        return _fused_forward(x, wconv, bconv, wproj, band)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _pullback(ctx, _plain_radarconv(ctx.band), g) + (None,)
+
+
 def fused_radarconv(x: torch.Tensor, wconv: torch.Tensor,
                     bconv: torch.Tensor, wproj: torch.Tensor,
                     band: int) -> torch.Tensor:
     """K1: a whole RadarConv, one launch.  x [B,C,H,W] raw; the weights as
     `pack_radarconv_weights` lays them out; integer band.  Returns
-    [B,Cout,H,W] in x's dtype."""
+    [B,Cout,H,W] in x's dtype; differentiable (`FusedRadarConv`)."""
+    if _wants_grad(x, wconv, bconv, wproj):
+        return FusedRadarConv.apply(x, wconv, bconv, wproj, band)
+    return _fused_forward(x, wconv, bconv, wproj, band)
+
+
+def _fused_forward(x, wconv, bconv, wproj, band):
     if x.device.type == "cpu":
-        from achelous_tpu_torch.ops.deform import fused_radarconv_reference
-        return fused_radarconv_reference(
-            x, *unpack_radarconv_weights(wconv, bconv, wproj), band)
+        return _plain_radarconv(band)(x, wconv, bconv, wproj)
     _check_cuda("fused_radarconv", x)
     if x.dim() != 4:
         raise ValueError(f"fused_radarconv: x must be [B,C,H,W], got "
@@ -172,11 +225,35 @@ def sm_count(device: torch.device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+class DeformSamples(torch.autograd.Function):
+    """K2 with a gradient: the kernel forward; the backward is the autograd
+    of `banded_deform_samples`."""
+
+    @staticmethod
+    def forward(ctx, x, offset, mask, band):
+        ctx.band = band
+        ctx.save_for_backward(x, offset, mask)
+        return _samples_forward(x, offset, mask, band)
+
+    @staticmethod
+    def backward(ctx, g):
+        from achelous_tpu_torch.ops.deform import banded_deform_samples
+        band = ctx.band
+        return _pullback(ctx, lambda x, o, m: banded_deform_samples(
+            x, o, m, band), g) + (None,)
+
+
 def deform_samples(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
                    band: Optional[int]) -> torch.Tensor:
     """K2: modulated bilinear samples.  x [B,C,H,W], offset [B,18,H,W],
     mask [B,9,H,W], all one dtype; band an int >= 0 or None (no clip).
-    Returns [B,9C,H,W] in x's dtype."""
+    Returns [B,9C,H,W] in x's dtype; differentiable (`DeformSamples`)."""
+    if _wants_grad(x, offset, mask):
+        return DeformSamples.apply(x, offset, mask, band)
+    return _samples_forward(x, offset, mask, band)
+
+
+def _samples_forward(x, offset, mask, band):
     if x.device.type == "cpu":
         from achelous_tpu_torch.ops.deform import banded_deform_samples
         return banded_deform_samples(x, offset, mask, band)

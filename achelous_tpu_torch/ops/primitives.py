@@ -67,8 +67,8 @@ class _DWConv(nn.Module):
 
 
 class ConvBN(nn.Module):
-    """Conv + BatchNorm(eps 1e-3) + activation `act`; `ds_conv=True` makes
-    the conv a depthwise-separable pair."""
+    """Conv + BatchNorm(eps 1e-3, momentum 0.03) + activation `act`;
+    `ds_conv=True` makes the conv a depthwise-separable pair."""
 
     def __init__(self, cin: int, features: int, kernel: int = 1,
                  ds_conv: bool = False, act: str = "relu"):
@@ -79,20 +79,20 @@ class ConvBN(nn.Module):
         else:
             self.conv = nn.Conv2d(cin, features, kernel, 1, (kernel - 1) // 2,
                                   bias=False)
-        self.bn = BatchNorm(features, eps=1e-3)
+        self.bn = BatchNorm(features, eps=1e-3, momentum=0.03)
 
     def forward(self, x):
         return self.act(self.bn(self.conv(x)))
 
 
 class YoloConv(nn.Module):
-    """conv + BN(eps 1e-3) + SiLU."""
+    """conv + BN(eps 1e-3, momentum 0.03) + SiLU."""
 
     def __init__(self, cin: int, features: int, kernel: int = 1):
         super().__init__()
         self.conv = nn.Conv2d(cin, features, kernel, 1, kernel // 2,
                               bias=False)
-        self.bn = BatchNorm(features, eps=1e-3)
+        self.bn = BatchNorm(features, eps=1e-3, momentum=0.03)
 
     def forward(self, x):
         return F.silu(self.bn(self.conv(x)))
@@ -195,6 +195,9 @@ class ShuffleAttention(nn.Module):
     (per-channel instance norm); then a 2-group channel shuffle."""
 
     G = 4
+    # flax keeps these as [C/2G] vectors ("flat" in the JAX mapping), so
+    # they take no weight decay (train/train_state.py decay_mask)
+    FLAX_VECTORS = ("cweight", "cbias", "sweight", "sbias")
 
     def __init__(self, channels: int):
         super().__init__()

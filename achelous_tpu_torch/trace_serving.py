@@ -37,11 +37,21 @@ def profile_frames(fn, q, frames: int = FRAMES):
             fn(*q)
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / frames
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = kernel_rows(prof.key_averages())
     busy_ms = sum(e.self_device_time_total for e in rows) / 1e3 / frames
     launches = sum(e.count for e in rows) / frames
     return wall_ms, busy_ms, launches, prof
+
+
+def kernel_rows(events):
+    """The device rows of a profile that are kernels or copies: not the
+    device-side spans of `record_function` ranges, which carry a host
+    row's name."""
+    host = {e.key for e in events
+            if e.device_type == torch.autograd.DeviceType.CPU}
+    return [e for e in events
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.key not in host]
 
 
 def main():
@@ -76,8 +86,7 @@ def main():
     print(f"{fn.cfg.name} per frame: wall {wall_ms:.3f} ms, device busy "
           f"{busy_ms:.3f} ms ({100 * busy_ms / wall_ms:.1f}%), "
           f"{launches:.0f} kernels")
-    rows = [e for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA]
+    rows = kernel_rows(prof.key_averages())
     rows.sort(key=lambda e: -e.self_device_time_total)
     for e in rows[:15]:
         print(f"  {e.self_device_time_total / 1e3 / FRAMES:8.4f} ms "

@@ -14,6 +14,10 @@ as `model.state_dict()`.
 
 The JAX package's mapping has no PointNet++ entries; `pointnet2_entries`
 supplies them in the same format.
+
+`load_train_state_from_jax` carries a whole JAX `TrainState` (params and
+batch_stats, log_vars, the EMA, the optax momentum trace or Adam moments,
+the counters) into the port's `TrainState`, through the same entries.
 """
 from __future__ import annotations
 
@@ -107,3 +111,68 @@ def state_dict_from_jax(variables: Mapping, entries: Iterable,
         raise ValueError(f"{len(missing)} port keys have no flax source: "
                          + ", ".join(missing[:20]))
     return out
+
+
+def _split(sd: Mapping, keys) -> dict:
+    return {k: v for k, v in sd.items() if k in keys}
+
+
+def _opt_leaves(opt_state):
+    """The optax states inside a (nested) chain state, depth first."""
+    if hasattr(opt_state, "_fields"):          # an optax NamedTuple state
+        yield opt_state
+        for v in opt_state:
+            yield from _opt_leaves(v)
+    elif isinstance(opt_state, (tuple, list)):
+        for v in opt_state:
+            yield from _opt_leaves(v)
+
+
+def load_train_state_from_jax(state, jstate, entries: Iterable) -> None:
+    """Copy a JAX `TrainState` (achelous_tpu/train/train_state.py; leaves
+    anything `np.asarray` takes) into the port's `TrainState` `state`, in
+    place.  The optimizer state is read from the optax chain: the SGD
+    `trace`, or Adam's `mu`, `nu` and `count`; each over {"model",
+    "log_vars"}, carried as the parameters are."""
+    import torch
+
+    entries = list(entries)
+    like = state.model.state_dict()
+    pnames = {n for n, _ in state.model.named_parameters()}
+    param_entries = [e for e in entries if e[1] == "params"]
+    like_params = _split(like, pnames)
+
+    def full(params, stats):
+        return state_dict_from_jax({"params": params, "batch_stats": stats},
+                                   entries, like)
+
+    def trainable(tree):
+        out = state_dict_from_jax({"params": tree["model"]}, param_entries,
+                                  like_params)
+        out["log_vars"] = np.asarray(tree["log_vars"], np.float32)
+        return out
+
+    def copy(dst: dict, src: dict):
+        for k, t in dst.items():
+            t.copy_(torch.from_numpy(np.asarray(src[k])))
+
+    with torch.no_grad():
+        state.model.load_state_dict(
+            {k: torch.from_numpy(v) for k, v in
+             full(jstate.params, jstate.batch_stats).items()})
+        state.log_vars.copy_(torch.from_numpy(
+            np.asarray(jstate.log_vars, np.float32)))
+        ema = full(jstate.ema_params, jstate.ema_batch_stats)
+        copy(state.ema_params, _split(ema, pnames))
+        copy(state.ema_batch_stats, _split(ema, set(ema) - pnames))
+        for leaf in _opt_leaves(jstate.opt_state):
+            for field in ("trace", "mu", "nu"):
+                if field in getattr(leaf, "_fields", ()):
+                    copy(state.opt_state[field],
+                         trainable(getattr(leaf, field)))
+            if "count" in getattr(leaf, "_fields", ()) and \
+                    "count" in state.opt_state:
+                state.opt_state["count"] = int(np.asarray(leaf.count))
+    state.step = int(np.asarray(jstate.step))
+    state.epoch = int(np.asarray(jstate.epoch))
+    state.ema_updates = int(np.asarray(jstate.ema_updates))

@@ -13,7 +13,21 @@ point on each of three paths (320x320, bf16, batch 1):
     EF-GDF-PN-S0   K1 x4, K2 x4, K3 x4
 
 and checks them against the same weights run in float32 through the plain
-versions on the CPU.  K2 is also held against its plain version on the
+versions on the CPU.  Then it trains EN-GDF-PN-S0 (320x320, float32
+parameters), in three phases:
+
+    T1  K1's and K2's autograd Functions (kernel forward, the plain
+        version's autograd backward) against torch.autograd of the plain
+        versions, at the training shapes (batch 32) and the serving ones;
+        every RadarConv parameter of a model gets a gradient
+    T2  one float32 step on the card against the same step on the CPU,
+        each tensor's change held to float32's own spread, read on the CPU
+        with the batch scaled by 1 +- 1e-6 and reversed (batch 8; logged
+        at batch 2, where PointNet's gradients are chaotic in float32)
+    T3  6 steps at batch 32 in bf16 with the default TrainConfig (K1 x4,
+        K2 x4 a step), one MGDA and one CAGrad step, and a step on a
+        batch with a NaN, which must change nothing but the step count
+  K2 is also held against its plain version on the
 exact route (band None) at C = 3, 320^2, and K4 at batch 3; K2's and K4's
 launch plans are logged.  K1 is timed as its single launch on weights packed
 once (the pack, which DeformableConv2d caches, is timed once beside it);
@@ -30,9 +44,11 @@ without a result where no GPU is visible.
 """
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import subprocess
+import time
 
 import numpy as np
 import torch
@@ -63,6 +79,37 @@ K3_CALLS = ("stage2.4", "stage2.5", "stage3.2", "stage3.3")
 K3_HEADS, K3_DK, K3_DV, K3_N = 8, 32, 128, 100
 # K4 at PointNet++'s four set-abstraction levels: (N, npoint)
 K4_SHAPES = ((512, 128), (128, 32), (32, 8), (8, 4))
+# Training (T1-T3): the reference's batch, 6 timed steps; K1/K2 launches
+# a training step (forward only: the backward is the plain versions')
+TRAIN_RES = 320
+TRAIN_BATCH = 32
+TRAIN_STEPS = 6
+TRAIN_LAUNCHES = {"fused_radarconv": 4, "deform_samples": 4}
+# T2, the card's float32 step against the CPU's, at batch STEP_BATCH:
+# losses and grad_norm within STEP_LOSS_RTOL relative; the largest
+# difference of any parameter's change over the step within STEP_REL of
+# the largest change; and each parameter tensor's change within STEP_REL
+# of its own (L2) plus STEP_FLOOR times the CPU's own spread for that
+# tensor: the most its CPU change moves when the batch is scaled by
+# 1 +- STEP_NUDGE or taken in reverse order (which changes every sum over
+# the batch, as the card's other summation orders do).  That spread is
+# float32's conditioning, read in the same run: PointNet's max-pools and
+# batch-normalised fully connected layers carry rounding a long way.  A
+# wrong gradient moves a tensor by its own size, far past both terms.
+# Biases whose output goes straight into a train-mode BatchNorm have an
+# exact gradient of 0, so their change is rounding noise on both sides,
+# and neither term bounds noise against noise: they are held by the
+# largest-change bound alone.
+STEP_LOSS_RTOL = 1e-3
+STEP_REL = 1e-2
+STEP_FLOOR = 2.0
+STEP_NUDGE = 1e-6
+# T2's batch.  At batch 2, PointNet's fully connected BatchNorms normalise
+# [B, C] over 2 samples whose features nearly coincide, and its float32
+# gradients are chaotic: the nudge alone moves grad_norm by percents.  T2
+# logs that reading at batch 2 and holds the step at batch 8.
+STEP_BATCH = 8
+STEP_BATCHES = (2, STEP_BATCH)
 # (name, backbone, pc_model, launches a request of each kernel)
 PATHS = (
     ("EN-GDF-PN-S0", "en", "pn",
@@ -563,6 +610,431 @@ def time_path(label, model, fn, dev_req):
         f"wall")
 
 
+# ---------------------------------------------------------------------------
+# training: T1 gradients of K1 and K2, T2 one step against the CPU, T3 the
+# slice at batch 32
+# ---------------------------------------------------------------------------
+
+
+@contextlib.contextmanager
+def phase(label):
+    """Logs a phase's seconds when it ends; raises what it raised."""
+    t0, ok = time.perf_counter(), False
+    try:
+        yield
+        ok = True
+    finally:
+        torch.cuda.synchronize()
+        log(f"{label}: {time.perf_counter() - t0:.1f} s"
+            + ("" if ok else " (failed)"))
+
+
+def grads_of(fn, leaves, g):
+    """fn's output on fresh leaves and its gradients w.r.t. them."""
+    ins = [t.detach().clone().requires_grad_(True) for t in leaves]
+    out = fn(*ins)
+    return out, torch.autograd.grad(out, ins, g)
+
+
+def check_grads(name, got, want, dtype):
+    worst = 0.0
+    for i, (a, b) in enumerate(zip(got, want)):
+        worst = max(worst, check(f"{name} grad {i}", a, b, dtype,
+                                 {dtype: 0.0}))
+    return worst
+
+
+def k1_grad_case(rng, b, c, h, dev, dtype):
+    """(inputs, kernel fn, plain fn, output channels): K1 through the pack,
+    so the gradients reach the module-layout weights, against the plain
+    version on those weights."""
+    from achelous_tpu_torch.ops import deform, hopper_deform
+    x, *w = (a.to(dtype) for a in k1_case(rng, c, h, 0.3, 3.0, dev))
+    x = x.expand(b, -1, -1, -1).contiguous() + torch.rand(
+        b, c, h, h, device=dev).to(dtype) * 0.1
+
+    def kernel(x, *w):
+        out = wrappers()["fused_radarconv"](
+            x, *hopper_deform.pack_radarconv_weights(*w), BAND)
+        if type(out.grad_fn).__name__ != "FusedRadarConvBackward":
+            raise AssertionError("fused_radarconv: output has no grad_fn of "
+                                 "its Function")
+        return out
+
+    def plain(x, *w):
+        return deform.fused_radarconv_reference(x, *w, BAND)
+    return [x, *w], kernel, plain, c
+
+
+def k2_grad_case(rng, b, c, h, dev, dtype):
+    from achelous_tpu_torch.ops import deform
+    args = [a.to(dtype) for a in k2_case(rng, c, h, 3.0, dev)]
+    args = [a.expand(b, -1, -1, -1).contiguous() for a in args]
+    args[0] = args[0] + torch.rand_like(args[0]) * 0.1
+
+    def kernel(*a):
+        out = wrappers()["deform_samples"](*a, BAND)
+        if type(out.grad_fn).__name__ != "DeformSamplesBackward":
+            raise AssertionError("deform_samples: output has no grad_fn of "
+                                 "its Function")
+        return out
+
+    def plain(*a):
+        return deform.banded_deform_samples(*a, BAND)
+    return args, kernel, plain, 9 * c
+
+
+def check_kernel_gradients(dev):
+    """T1: K1's and K2's Functions against plain autograd on the card, at
+    the training shapes (batch 32) and the serving shapes (batch 1),
+    float32 (TF32 off) and bf16; the training shapes timed in bf16."""
+    rng = np.random.RandomState(1)
+    for name, shapes, make in (("fused_radarconv", K1_SHAPES, k1_grad_case),
+                               ("deform_samples", K2_SHAPES, k2_grad_case)):
+        worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+        fwd = plain_fwd = bwd = 0.0
+        for b in (TRAIN_BATCH, 1):
+            for block, c, h in shapes:
+                for dt in (torch.float32, torch.bfloat16):
+                    args, kernel, plain, cout = make(rng, b, c, h, dev, dt)
+                    g = torch.randn(b, cout, h, h, device=dev).to(dt)
+                    got_out, got = grads_of(kernel, args, g)
+                    want_out, want = grads_of(plain, args, g)
+                    torch.cuda.synchronize()
+                    label = f"{name} block {block} B={b} {dt}"
+                    check(label, got_out, want_out, dt, {dt: 0.0})
+                    worst[dt] = max(worst[dt], check_grads(label, got, want,
+                                                           dt))
+                if b != TRAIN_BATCH:
+                    continue
+                # args and g are bf16 here: the step's dtype
+                leaves = [a.detach().requires_grad_(True) for a in args]
+                out = kernel(*leaves)
+                with torch.no_grad():
+                    t_k = device_ms(lambda: kernel_nograd(name, args))
+                    t_p = device_ms(lambda: plain(*args), 3)
+                t_b = cuda_ms(lambda: torch.autograd.grad(
+                    out, leaves, g, retain_graph=True), iters=3, warmup=1)
+                log(f"T1 {name} block {block} C={c} {h}x{h} B={b} bf16: "
+                    f"kernel forward {t_k:.4f} ms (plain {t_p:.4f} ms), "
+                    f"backward (plain recompute + autograd) {t_b:.4f} ms")
+                fwd, plain_fwd, bwd = fwd + t_k, plain_fwd + t_p, bwd + t_b
+        log(f"T1 {name}: Function gradients vs plain autograd, max abs err "
+            f"f32 {worst[torch.float32]:.3g}, bf16 "
+            f"{worst[torch.bfloat16]:.3g}; a training step's 4 calls at "
+            f"B={TRAIN_BATCH} bf16: forward {fwd:.4f} ms (plain "
+            f"{plain_fwd:.4f} ms), backward {bwd:.4f} ms")
+
+
+def kernel_nograd(name, args):
+    from achelous_tpu_torch.ops import hopper_deform
+    w = wrappers()[name]
+    if name == "fused_radarconv":
+        return w(args[0], *hopper_deform.pack_radarconv_weights(*args[1:]),
+                 BAND)
+    return w(*args, BAND)
+
+
+def train_model(cfg, dev, seed=0):
+    """A training-form model on `dev` with the RadarConvs' offset and
+    modulator convs drawn, so sampling leaves the zero-offset regime."""
+    from achelous_tpu_torch.entry import perturb_deform_convs
+    from achelous_tpu_torch.models.achelous import create_model
+    model = create_model(cfg, dev, torch.Generator().manual_seed(seed),
+                         train=True)
+    perturb_deform_convs(model)
+    return model
+
+
+def check_radarconv_gradients(dev):
+    """T1: one backward of a bf16 model gives every RadarConv parameter a
+    non-zero gradient, through 4 K1 and 4 K2 launches."""
+    from achelous_tpu_torch.core.config import AchelousConfig
+    from achelous_tpu_torch.data.synthetic import synthetic_batch
+    from achelous_tpu_torch.models.achelous import forward_compute
+    cfg = AchelousConfig(resolution=TRAIN_RES, dtype=torch.bfloat16)
+    model = train_model(cfg, dev)
+    batch = synthetic_batch(cfg, 2, 8, seed=3, device=dev)
+    w = wrappers()
+    for f in w.values():
+        f.launches = 0
+    det, sem, lane, pc = forward_compute(model, batch["image"],
+                                         batch["radar"], batch["pc"])
+    counts = {n: f.launches for n, f in w.items() if f.launches}
+    if counts != TRAIN_LAUNCHES:
+        raise AssertionError(f"forward launches {counts}, want "
+                             f"{TRAIN_LAUNCHES}")
+    loss = sum(t.float().square().mean() for t in (*det, sem, lane)) \
+        + pc.float().mean()
+    loss.backward()
+    params = {n: p for n, p in model.named_parameters()
+              if ".radar_conv." in n}
+    dead = [n for n, p in params.items()
+            if p.grad is None or not bool(p.grad.abs().sum() > 0)]
+    if len(params) != 8 * 5 or dead:
+        raise AssertionError(f"RadarConv parameters without a gradient: "
+                             f"{dead} (of {len(params)})")
+    log(f"T1: all {len(params)} RadarConv parameters got a non-zero "
+        f"gradient from one backward (forward launches {counts})")
+
+
+def one_step(model, cfg, tcfg, arrays, dev, scale=1.0, reverse=False):
+    """One step from `model`'s state on `dev`, the batch's image, radar map
+    and points scaled by `scale`, its samples in reverse order if
+    `reverse`: (name -> the change of each parameter, on the CPU; the
+    metrics; the K1/K2 launches)."""
+    from achelous_tpu_torch.data.synthetic import to_batch
+    from achelous_tpu_torch.train.train_state import (create_train_state,
+                                                      make_train_step)
+    arrays = {k: v * np.float32(scale) if k in ("image", "radar", "pc")
+              else v for k, v in arrays.items()}
+    if reverse:
+        arrays = {k: np.ascontiguousarray(v[::-1]) for k, v in arrays.items()}
+    state = create_train_state(copy.deepcopy(model).to(dev), cfg, tcfg)
+    w = wrappers()
+    for f in w.values():
+        f.launches = 0
+    state, m = make_train_step(cfg, tcfg)(state, to_batch(arrays, dev), 0.01)
+    before = dict(model.named_parameters())
+    changes = {n: p.detach().cpu() - before[n].detach()
+               for n, p in state.model.named_parameters()}
+    return (changes, {k: float(v) for k, v in m.items()},
+            {n: f.launches for n, f in w.items() if f.launches})
+
+
+def zero_gradient_biases(model, batch):
+    """Names of the biases of convs and linear layers whose output goes
+    straight into a train-mode BatchNorm, found by one forward."""
+    from achelous_tpu_torch.ops.norm import BatchNorm
+    last, found, hooks = [None, None], set(), []
+
+    def made(mod, inputs, out, name):
+        last[:] = name, out
+
+    def normed(mod, inputs):
+        if mod.training and inputs[0] is last[1]:
+            found.add(f"{last[0]}.bias")
+
+    for name, m in model.named_modules():
+        if isinstance(m, (torch.nn.Conv1d, torch.nn.Conv2d, torch.nn.Linear)
+                      ) and m.bias is not None:
+            hooks.append(m.register_forward_hook(
+                lambda mod, i, o, name=name: made(mod, i, o, name)))
+        elif isinstance(m, BatchNorm):
+            hooks.append(m.register_forward_pre_hook(normed))
+    with torch.no_grad():
+        model(batch["image"], batch["radar"], batch["pc"])
+    for h in hooks:
+        h.remove()
+    return found
+
+
+def step_against_cpu(dev):
+    """T2: one float32 step (TF32 off) of EN-GDF-PN-S0 at 320^2 on the card
+    through K1/K2, on the CPU through the plain versions, and on the CPU
+    with the batch scaled by 1 +- STEP_NUDGE and reversed, from the same
+    state and batch; logged at each of STEP_BATCHES, held at STEP_BATCH."""
+    from achelous_tpu_torch.core.config import AchelousConfig
+    from achelous_tpu_torch.data.synthetic import synthetic_arrays, to_batch
+    from achelous_tpu_torch.train.train_state import TrainConfig
+    cfg = AchelousConfig(resolution=TRAIN_RES)
+    tcfg = TrainConfig()
+    model = train_model(cfg, "cpu")
+    cpu = torch.device("cpu")
+    zero = zero_gradient_biases(
+        model, to_batch(synthetic_arrays(cfg, 2, tcfg.max_gt, seed=7), cpu))
+    metrics = ("loss", "loss_det", "loss_seg", "loss_wl", "loss_pc",
+               "grad_norm")
+    for batch in STEP_BATCHES:
+        arrays = synthetic_arrays(cfg, batch, tcfg.max_gt, seed=7)
+        got, gm, counts = one_step(model, cfg, tcfg, arrays, dev)
+        if counts != TRAIN_LAUNCHES:
+            raise AssertionError(f"T2 launches {counts}")
+        want, wm, _ = one_step(model, cfg, tcfg, arrays, cpu)
+        nudged = [one_step(model, cfg, tcfg, arrays, cpu, 1 + s)
+                  for s in (STEP_NUDGE, -STEP_NUDGE)]
+        nudged.append(one_step(model, cfg, tcfg, arrays, cpu, reverse=True))
+        rel = {k: abs(gm[k] - wm[k]) / abs(wm[k]) for k in metrics}
+        gap = max(abs(m["grad_norm"] - wm["grad_norm"]) / wm["grad_norm"]
+                  for _, m, _ in nudged)
+        log(f"T2 batch {batch} card vs CPU, float32, relative: "
+            + ", ".join(f"{k} {v:.3g}" for k, v in rel.items())
+            + f"; CPU vs CPU with the batch scaled by 1 +- {STEP_NUDGE:g} "
+            f"or reversed: grad_norm up to {gap:.3g}")
+        # per tensor: (|card - CPU|, |CPU|, max |spread CPU - CPU|), L2
+        rows = {n: (float((got[n] - dw).norm()), float(dw.norm()),
+                    max(float((c[n] - dw).norm()) for c, _, _ in nudged))
+                for n, dw in want.items()}
+
+        def worst(key, k=4):
+            top = sorted(rows, key=key, reverse=True)[:k]
+            return ", ".join(f"{n} {key(n):.3g}" for n in top)
+
+        def own(i):
+            return lambda n: rows[n][i] / rows[n][1] if rows[n][1] else 0.0
+
+        def against_bound(n):
+            e, c, f = rows[n]
+            bound = STEP_REL * c + STEP_FLOOR * f
+            return e / bound if bound else (float("inf") if e else 0.0)
+        rc = [n for n in rows if ".radar_conv." in n]
+        log(f"T2 batch {batch} updates, L2 per tensor against the CPU's "
+            f"change: card vs CPU worst {worst(own(0))}; the CPU's spread "
+            f"worst {worst(own(2))}; RadarConvs ({len(rc)} tensors) worst "
+            f"card vs CPU {max(own(0)(n) for n in rc):.3g}, spread "
+            f"{max(own(2)(n) for n in rc):.3g}")
+        if batch != STEP_BATCH:
+            continue
+        if gm["skipped_nonfinite"] or wm["skipped_nonfinite"] or max(
+                rel.values()) > STEP_LOSS_RTOL:
+            raise AssertionError(f"T2 losses/grad_norm outside "
+                                 f"{STEP_LOSS_RTOL}")
+        top = max(float(d.abs().max()) for d in want.values())
+        diff, name = max((float((got[n] - d).abs().max()), n)
+                         for n, d in want.items())
+        log(f"T2: the largest change of any parameter {top:.4g}; the "
+            f"largest card-CPU difference {diff:.4g} ({name}), "
+            f"{diff / top:.3g} of it (bound {STEP_REL})")
+        held = sorted((n for n in rows if n not in zero),
+                      key=against_bound, reverse=True)
+        log(f"T2: {len(zero)} biases in front of a train-mode BatchNorm "
+            f"held by the largest change alone (worst card vs CPU "
+            f"{max(own(0)(n) for n in zero):.3g} of its own change, the "
+            f"CPU's spread {max(own(2)(n) for n in zero):.3g}); the other "
+            f"{len(held)} against {STEP_REL} of their own change + "
+            f"{STEP_FLOOR} x the CPU's spread, worst (ratio to the bound, "
+            f"card vs CPU and spread of the own change): " + ", ".join(
+                f"{n} {against_bound(n):.3g} ({own(0)(n):.3g}, "
+                f"{own(2)(n):.3g})" for n in held[:4]))
+        if diff > STEP_REL * top:
+            raise AssertionError(f"T2 update of {name} outside {STEP_REL} "
+                                 f"of the largest change")
+        over = [n for n in held if against_bound(n) > 1.0]
+        if over:
+            raise AssertionError(f"T2 updates outside their bound: {over}")
+
+
+def snapshot(state):
+    return {"params": {n: p.detach().clone()
+                       for n, p in state.model.named_parameters()},
+            "stats": {n: t.clone() for n, t in state.batch_stats().items()},
+            "trace": {n: t.clone()
+                      for n, t in state.opt_state["trace"].items()},
+            "ema": {n: t.clone() for n, t in
+                    {**state.ema_params, **state.ema_batch_stats}.items()}}
+
+
+def train_slice(dev):
+    """T3: EN-GDF-PN-S0 at 320^2, batch 32, bf16 compute on float32
+    parameters, the default TrainConfig: 6 steps on seeded synthetic
+    batches, K1 x4 and K2 x4 a step; then one MGDA and one CAGrad step and
+    a step on a batch with a NaN.  Returns the K1/K2 launches of the 6
+    steps."""
+    from achelous_tpu_torch.core.config import AchelousConfig
+    from achelous_tpu_torch.data.synthetic import synthetic_batch
+    from achelous_tpu_torch.train.schedule import get_lr_scheduler, scale_lr
+    from achelous_tpu_torch.train.train_state import (TrainConfig,
+                                                      create_train_state,
+                                                      make_train_step)
+    cfg = AchelousConfig(resolution=TRAIN_RES, dtype=torch.bfloat16)
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH)
+    init_lr, min_lr = scale_lr(tcfg.lr_init, tcfg.batch_size, tcfg.optimizer)
+    lr = get_lr_scheduler(tcfg.lr_decay, init_lr, min_lr, tcfg.epochs)(1)
+    batches = [synthetic_batch(cfg, tcfg.batch_size, tcfg.max_gt,
+                               seed=100 + i, device=dev)
+               for i in range(TRAIN_STEPS)]
+    state = create_train_state(train_model(cfg, dev), cfg, tcfg)
+    step = make_train_step(cfg, tcfg)
+    start = snapshot(state)
+    w = wrappers()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, totals = [], {n: 0 for n in TRAIN_LAUNCHES}
+    for i, batch in enumerate(batches):
+        for f in w.values():
+            f.launches = 0
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        t0.record()
+        state, m = step(state, batch, lr)
+        t1.record()
+        torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+        counts = {n: f.launches for n, f in w.items() if f.launches}
+        if counts != TRAIN_LAUNCHES:
+            raise AssertionError(f"T3 step {i}: launches {counts}, want "
+                                 f"{TRAIN_LAUNCHES}")
+        for n, c in counts.items():
+            totals[n] += c
+        vals = {k: float(v) for k, v in m.items()}
+        if m["skipped_nonfinite"] or not all(np.isfinite(list(vals.values()))):
+            raise AssertionError(f"T3 step {i}: metrics {vals}")
+        log(f"T3 step {i}: {times[-1]:.1f} ms, " + ", ".join(
+            f"{k} {v:.4g}" for k, v in vals.items()))
+    peak = torch.cuda.max_memory_allocated(dev)
+    ms = float(np.median(times[1:]))
+    moved = sum(float((p.detach() - start["params"][n]).abs().sum())
+                for n, p in state.model.named_parameters())
+    lag = sum(float((state.ema_params[n] - start["params"][n]).abs().sum())
+              for n in start["params"])
+    if not 0 < lag < moved:
+        raise AssertionError(f"T3: params moved {moved}, EMA {lag}")
+    log(f"T3 EN-GDF-PN-S0 train bf16 bs{tcfg.batch_size} 320x320: "
+        f"{ms:.2f} ms/step (median of steps 2-{TRAIN_STEPS}, CUDA events), "
+        f"{tcfg.batch_size / ms * 1e3:.1f} images/s, peak memory "
+        f"{peak / 2**30:.2f} GiB (max_memory_allocated); launches "
+        f"{totals}; params moved {moved:.4g}, EMA {lag:.4g}")
+
+    bad = dict(batches[0])
+    bad["image"] = bad["image"].clone()
+    bad["image"][0, 0, 0, 0] = float("nan")
+    before = snapshot(state)
+    state, m = step(state, bad, lr)
+    after = snapshot(state)
+    same = all(torch.equal(a, after[k][n]) for k, d in before.items()
+               for n, a in d.items())
+    if m["skipped_nonfinite"] != 1.0 or not same or state.step != \
+            TRAIN_STEPS + 1:
+        raise AssertionError(f"T3 NaN batch: skipped "
+                             f"{m['skipped_nonfinite']}, state unchanged "
+                             f"{same}, step {state.step}")
+    log("T3 NaN batch: skipped_nonfinite 1, params, optimizer state, BN "
+        "statistics and EMA unchanged, step counter moved")
+    del state, step, start, before, after
+
+    for mtl in ("mgda", "cagrad"):
+        mcfg = TrainConfig(batch_size=TRAIN_BATCH, mtl=mtl)
+        mstate = create_train_state(train_model(cfg, dev), cfg, mcfg)
+        t0 = time.perf_counter()
+        mstate, m = make_train_step(cfg, mcfg)(mstate, batches[0], lr)
+        torch.cuda.synchronize()
+        vals = {k: float(v) for k, v in m.items()}
+        if m["skipped_nonfinite"] or not all(np.isfinite(list(vals.values()))):
+            raise AssertionError(f"T3 {mtl}: metrics {vals}")
+        log(f"T3 {mtl} step bs{tcfg.batch_size}: "
+            f"{(time.perf_counter() - t0) * 1e3:.1f} ms, " + ", ".join(
+                f"{k} {v:.4g}" for k, v in vals.items()))
+        del mstate
+    return totals
+
+
+def train_phases(dev):
+    """T1-T3; returns the K1/K2 launches of the training slice's run."""
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with phase("T1 gradients of K1 and K2"):
+        check_kernel_gradients(dev)
+        check_radarconv_gradients(dev)
+    with phase("T2 one float32 step against the CPU"):
+        step_against_cpu(dev)
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32
+    torch.cuda.empty_cache()
+    with phase("T3 the training slice"):
+        return train_slice(dev)
+
+
 def main():
     log(device_line())
     dev = torch.device("cuda", 0)
@@ -580,6 +1052,8 @@ def main():
                   ((1, 3, 320, 320), (1, 3, 320, 320), (1, 512, 5)))
         time_path(label, model, fn, q)
         del model, fn
+    for name, count in train_phases(dev).items():
+        launches[name] += count
     rows = []
     for name, source, replaces in (
             ("fused_radarconv", "achelous_tpu_torch/csrc/deform.cu",
@@ -591,7 +1065,7 @@ def main():
             ("farthest_point_sample", "achelous_tpu_torch/csrc/pointops.cu",
              "achelous_tpu/ops/pallas_pointops.py:58")):
         if launches[name] == 0:
-            raise AssertionError(f"{name}: no launch on the serving paths")
+            raise AssertionError(f"{name}: no launch on the main paths")
         k = kernels[name]
         rows.append({"name": name, "route": "cuda", "source": source,
                      "replaces": replaces, "launches": launches[name],

@@ -16,6 +16,12 @@ at the shapes the serving paths give them (320x320, batch 1):
                            batch 1 and 3, with ties, masks, no valid point;
                            both cross-warp reductions; the thread limits)
 
+K1's and K2's autograd Functions (kernel forward, the plain version's
+autograd backward) are held against torch.autograd of the plain versions
+over bands 0-6 (and None for K2), ragged maps and both dtypes, and a
+grad-enabled DeformableConv2d must give every parameter a gradient.  An
+eval after a bf16 training step must run on the new weights.
+
 Every test is marked `cuda` and skips where no GPU is visible.  This file
 imports no JAX, so it also runs on a machine without it:
 
@@ -230,6 +236,156 @@ def test_k2_kernel_unaligned_input(cuda_device, band, dtype):
                  for a in ((rng.rand(1, 18, h, h) * 2 - 1) * 6,
                            rng.rand(1, 9, h, h) * 2))
     check_k2([x, off, mask], band, dtype)
+
+
+# ---------------------------------------------------------------------------
+# gradients: the autograd Functions (kernel forward, plain backward) against
+# torch.autograd of the plain versions on the same card inputs
+# ---------------------------------------------------------------------------
+
+
+def grads_of(fn, leaves, g):
+    ins = [t.detach().clone().requires_grad_(True) for t in leaves]
+    out = fn(*ins)
+    return out, torch.autograd.grad(out, ins, g)
+
+
+def check_k1_grads(args, band, dtype):
+    """K1's Function through the pack (gradients reach the module-layout
+    weights) against the plain version on those weights."""
+    def kernel(x, *w):
+        packed = hopper_deform.pack_radarconv_weights(*w)
+        out = hopper_deform.fused_radarconv(x, *packed, band)
+        assert type(out.grad_fn).__name__ == "FusedRadarConvBackward"
+        return out
+
+    def plain(x, *w):
+        return deform.fused_radarconv_reference(x, *w, band)
+
+    before = hopper_deform.fused_radarconv.launches
+    g = torch.randn(args[0].shape[0], args[5].shape[0], *args[0].shape[2:],
+                    device=args[0].device).to(dtype)
+    got_out, got = grads_of(kernel, args, g)
+    want_out, want = grads_of(plain, args, g)
+    torch.cuda.synchronize()
+    assert hopper_deform.fused_radarconv.launches == before + 1
+    torch.testing.assert_close(got_out.float(), want_out.float(), **TOL[dtype])
+    for name, a, b in zip(("x", "w_off", "b_off", "w_mod", "b_mod",
+                           "weight"), got, want):
+        assert a.dtype == b.dtype, name
+        torch.testing.assert_close(a.float(), b.float(), **TOL[dtype],
+                                   msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("band", range(7))
+@pytest.mark.parametrize("c,cout,h,w", [(3, 3, 64, 64), (8, 8, 37, 53),
+                                         (5, 2, 29, 31)])
+def test_k1_gradients_match_plain_autograd(cuda_device, c, cout, h, w, band,
+                                           dtype):
+    """Bands 0-6, square and ragged maps, Cout != C, batch 2, offsets
+    past the band."""
+    args = k1_args(np.random.RandomState(band + c), 2, c, cout, h, w, 2.0,
+                   8.0, cuda_device, dtype)
+    check_k1_grads(args, band, dtype)
+
+
+def check_k2_grads(args, band, dtype):
+    def kernel(x, off, mask):
+        out = hopper_deform.deform_samples(x, off, mask, band)
+        assert type(out.grad_fn).__name__ == "DeformSamplesBackward"
+        return out
+
+    def plain(x, off, mask):
+        return deform.banded_deform_samples(x, off, mask, band)
+
+    before = hopper_deform.deform_samples.launches
+    b, c, h, w = args[0].shape
+    g = torch.randn(b, 9 * c, h, w, device=args[0].device).to(dtype)
+    got_out, got = grads_of(kernel, args, g)
+    want_out, want = grads_of(plain, args, g)
+    torch.cuda.synchronize()
+    assert hopper_deform.deform_samples.launches == before + 1
+    torch.testing.assert_close(got_out.float(), want_out.float(), **TOL[dtype])
+    for name, a, b in zip(("x", "offset", "mask"), got, want):
+        torch.testing.assert_close(a.float(), b.float(), **TOL[dtype],
+                                   msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("band", list(range(7)) + [None])
+@pytest.mark.parametrize("c,h,w", [(12, 40, 40), (24, 20, 20), (5, 37, 53)])
+def test_k2_gradients_match_plain_autograd(cuda_device, c, h, w, band,
+                                           dtype):
+    """Bands 0-6 and None, the training shapes' channels at batch 2 and a
+    ragged map, offsets past the band."""
+    rng = np.random.RandomState(c + (band or 9))
+    args = [torch.from_numpy(a.astype(np.float32)).to(cuda_device, dtype)
+            for a in (rng.randn(2, c, h, w),
+                      (rng.rand(2, 18, h, w) * 2 - 1) * 7.3,
+                      rng.rand(2, 9, h, w) * 2)]
+    check_k2_grads(args, band, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("cin,band", [(8, BAND), (12, BAND), (3, None)])
+def test_deformable_conv_params_all_get_gradients(cuda_device, cin, band,
+                                                  dtype):
+    """A grad-enabled DeformableConv2d on the card (K1 for cin <= 8 with a
+    band, else K2) gives its input and every parameter a non-zero
+    gradient: before the autograd Functions, the kernels' outputs had no
+    grad_fn and all of these were lost."""
+    torch.manual_seed(cin)
+    m = deform.DeformableConv2d(cin, cin, band=band).to(cuda_device, dtype)
+    with torch.no_grad():
+        for conv in (m.offset_conv, m.modulator_conv):
+            conv.weight.normal_(0, 0.3)
+            conv.bias.normal_(0, 0.3)
+    x = torch.rand(2, cin, 24, 24, device=cuda_device, dtype=dtype,
+                   requires_grad=True)
+    fused = hopper_deform.fused_radarconv.launches
+    samples = hopper_deform.deform_samples.launches
+    m(x).float().square().sum().backward()
+    assert (hopper_deform.fused_radarconv.launches - fused,
+            hopper_deform.deform_samples.launches - samples) == (
+                (1, 0) if m.fused else (0, 1))
+    assert x.grad is not None and bool(x.grad.abs().sum() > 0)
+    for name, p in m.named_parameters():
+        assert p.grad is not None and bool(p.grad.abs().sum() > 0), name
+
+
+def test_eval_after_a_train_step_sees_the_new_weights(cuda_device):
+    """bf16 training form: eval_step, one train step, eval_step again.
+    The forward casts the float32 parameters afresh on every call, and a
+    fresh cast may land where the last one lay with the same version, so
+    a cache keyed on address and version alone would hand K1 the pack of
+    the old weights.  The second eval must equal an eval with every
+    kernel-argument cache cleared, and differ from the first."""
+    from achelous_tpu_torch.core.config import AchelousConfig
+    from achelous_tpu_torch.data.synthetic import synthetic_batch
+    from achelous_tpu_torch.models.achelous import create_model
+    from achelous_tpu_torch.ops.param_cache import ParamCache
+    from achelous_tpu_torch.train import train_state as tts
+    cfg = AchelousConfig(resolution=64, dtype=torch.bfloat16)
+    tcfg = tts.TrainConfig(max_gt=8)
+    state = tts.create_train_state(create_model(cfg, cuda_device, train=True),
+                                   cfg, tcfg)
+    batch = synthetic_batch(cfg, 2, tcfg.max_gt, seed=1, device=cuda_device)
+    evaluate = tts.make_eval_step(cfg, tcfg)
+    before = evaluate(state, batch)
+    fused = hopper_deform.fused_radarconv.launches
+    state, m = tts.make_train_step(cfg, tcfg)(state, batch, 0.01)
+    assert m["skipped_nonfinite"] == 0.0
+    after = evaluate(state, batch)
+    assert hopper_deform.fused_radarconv.launches - fused == 8
+    for mod in state.model.modules():
+        for v in vars(mod).values():
+            if isinstance(v, ParamCache):
+                v.clear()
+    fresh = evaluate(state, batch)
+    assert not torch.equal(before["loss"], after["loss"])
+    for k, v in after.items():
+        assert torch.equal(v, fresh[k]), k
 
 
 def test_kernels_reject_what_they_do_not_take(cuda_device):

@@ -5,6 +5,7 @@ on the CPU (no JAX; each case well under a second).
                            its inverse
   DeformableConv2d         packs once, re-packs after an in-place update,
                            load_state_dict or a cast
+  ParamCache               never takes a tensor made afresh for the last one
   Attention4D              gathers and rounds the bias table and head mixes
                            once, again after the same changes
 """
@@ -14,6 +15,7 @@ import torch
 
 from achelous_tpu_torch.models.efficientformer import Attention4D
 from achelous_tpu_torch.ops import deform, hopper_deform
+from achelous_tpu_torch.ops.param_cache import ParamCache
 
 BAND = 4
 
@@ -107,6 +109,25 @@ def test_deform_conv_never_caches_for_a_gradient():
     out = m(torch.rand(1, 2, 6, 6))                 # after an inference pack
     out.sum().backward()
     assert m.regular_conv.weight.grad is not None
+
+
+def test_cache_rebuilds_for_tensors_made_afresh():
+    """A tensor made afresh on every call (the training form's casts of
+    float32 parameters) has version 0 and may lie where the last one lay:
+    the cache must not take it for the last one."""
+    arr = np.zeros(4, np.float32)
+    cache = ParamCache()
+
+    def get():
+        fresh = torch.from_numpy(arr)      # same address, version 0
+        return cache.get([fresh], lambda: fresh.clone())
+
+    assert float(get().sum()) == 0.0
+    arr += 1.0
+    assert float(get().sum()) == 4.0
+    kept = torch.nn.Parameter(torch.zeros(4), requires_grad=False)
+    first = cache.get([kept], kept.clone)
+    assert cache.get([kept], kept.clone) is first
 
 
 def attention(seed=0):
