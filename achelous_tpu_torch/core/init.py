@@ -1,4 +1,5 @@
-"""Parameter initialisation that follows the JAX package's flax defaults.
+"""Parameter initialisation (counterpart of achelous_tpu/core/init.py and
+of the flax defaults the JAX package builds its parameters with).
 
 flax `nn.Conv` / `nn.Dense` kernels are lecun-normal (a normal truncated at
 two standard deviations, variance 1/fan_in) with zero biases; norms start
@@ -6,6 +7,21 @@ at ones/zeros with running statistics 0/1.  Modules whose flax parameters
 start elsewhere (zero offset/modulator convs, layer scales, attention
 temperatures) set those values when they are built, and `init_params`
 leaves any module that defines `zero_init_` to zero itself afterwards.
+
+`weights_init` is the reference's `weights_init` (loss/detection_loss.py:
+466-485) as the JAX package applies it: every tensor whose flax
+counterpart is a conv kernel of rank >= 3 is re-drawn by one of four
+schemes with one gain, and every BatchNorm's scale is drawn from
+N(1, 0.02) and its bias set to 0.
+
+Where a parameter's flax counterpart is of another kind than torch's
+layout says, the module above it names that kind in `FLAX_KIND`, keyed by
+the parameter's or a child module's name ("" for everything beneath the
+module): "vector" (a rank-1 leaf that torch shapes [1,C,1,1] or [C,1,1]),
+"dense" (an `nn.Dense` kernel held by a torch `Conv1d` / `Conv2d`) or
+"param" (a plain parameter held by a torch conv or linear layer).
+`flax_kinds` reads them; weight decay (train/train_state.py `decay_mask`)
+skips the vectors and `weights_init` keeps the dense and plain weights.
 """
 from __future__ import annotations
 
@@ -13,6 +29,10 @@ import math
 
 import torch
 from torch import nn
+
+from achelous_tpu_torch.ops.norm import BatchNorm
+
+INIT_TYPES = ("normal", "xavier", "kaiming", "orthogonal")
 
 # std of a unit normal truncated at +-2, which lecun_normal divides out
 _TRUNC_STD = 0.87962566103423978
@@ -37,4 +57,78 @@ def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
     for m in model.modules():
         if hasattr(m, "zero_init_"):
             m.zero_init_()
+    return model
+
+
+def flax_kinds(model: nn.Module) -> dict[str, str]:
+    """Parameter name -> its flax kind, for the parameters some module's
+    `FLAX_KIND` names (the innermost such module decides)."""
+    names = [n for n, _ in model.named_parameters()]
+    out = {}
+    for mname, m in model.named_modules():
+        for key, kind in getattr(m, "FLAX_KIND", {}).items():
+            prefix = ".".join(p for p in (mname, key) if p)
+            for n in names:
+                if not prefix or n == prefix or n.startswith(prefix + "."):
+                    out[n] = kind
+    return out
+
+
+def flax_conv_weights(model: nn.Module) -> list[str]:
+    """Names of the conv weights whose flax counterpart is a conv kernel of
+    rank >= 3 (those `weights_init` re-draws), in module order."""
+    kinds = flax_kinds(model)
+    return [f"{name}.weight" for name, m in model.named_modules()
+            if isinstance(m, (nn.Conv1d, nn.Conv2d))
+            and f"{name}.weight" not in kinds]
+
+
+def _scheme(shape, init_type: str, gain: float,
+            generator: torch.Generator) -> torch.Tensor:
+    """One conv weight [out, in/groups, *k] drawn by the scheme; fans as
+    torch's `_calculate_fan_in_and_fan_out` and the JAX package take them."""
+    recep = math.prod(shape[2:])
+    fan_in, fan_out = shape[1] * recep, shape[0] * recep
+    normal = torch.randn(shape, generator=generator)
+    if init_type == "normal":
+        return gain * normal
+    if init_type == "xavier":
+        return gain * math.sqrt(2.0 / (fan_in + fan_out)) * normal
+    if init_type == "kaiming":
+        return math.sqrt(2.0 / fan_in) * normal
+    # orthogonal (torch's orthogonal_): rows or columns of the
+    # [out, in * k] matrix orthonormal, whichever are fewer
+    flat = normal.reshape(shape[0], -1)
+    if flat.shape[0] < flat.shape[1]:
+        flat = flat.t()
+    q, r = torch.linalg.qr(flat)
+    q = q * torch.sign(torch.diagonal(r))
+    if shape[0] < fan_in:
+        q = q.t()
+    return gain * q.reshape(shape)
+
+
+@torch.no_grad()
+def weights_init(model: nn.Module, init_type: str = "normal",
+                 init_gain: float = 0.02,
+                 generator: torch.Generator | None = None) -> nn.Module:
+    """Re-draw the model's conv weights (`flax_conv_weights`) by
+    `init_type` (normal: gain * N(0, 1); xavier: xavier-normal with gain;
+    kaiming: kaiming-normal, fan_in, a = 0; orthogonal with gain) and every
+    BatchNorm's scale from N(1, 0.02), its bias 0; in place, drawn on the
+    CPU from `generator` (seed 0 when None)."""
+    if init_type not in INIT_TYPES:
+        raise NotImplementedError(
+            f"initialization method [{init_type}] is not implemented")
+    if generator is None:
+        generator = torch.Generator().manual_seed(0)
+    params = dict(model.named_parameters())
+    for name in flax_conv_weights(model):
+        w = params[name]
+        w.copy_(_scheme(tuple(w.shape), init_type, init_gain, generator))
+    for m in model.modules():
+        if isinstance(m, BatchNorm):
+            m.weight.copy_(1.0 + 0.02 * torch.randn(m.weight.shape,
+                                                    generator=generator))
+            m.bias.zero_()
     return model

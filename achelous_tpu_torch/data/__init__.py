@@ -1,1 +1,2 @@
-"""Batches in the training layout (synthetic, from a numpy seed)."""
+"""Batches in the training layout: synthetic ones from a numpy seed, and the
+WaterScenes pipeline (dataset, augmentation, collate, prefetch)."""

@@ -143,19 +143,25 @@ def create_model(cfg: AchelousConfig,
 
 
 def forward_compute(model: Achelous, image: torch.Tensor, radar: torch.Tensor,
-                    points: torch.Tensor):
+                    points: torch.Tensor,
+                    tensors: Optional[dict[str, torch.Tensor]] = None):
     """The forward of a model with float32 parameters in `model.cfg.dtype`,
     as the flax modules compute: the inputs and every parameter but the
     BatchNorms' (float32, ops/norm.py) are cast to that dtype at use, and
     autograd carries the gradients back to the float32 parameters.  So K1
-    and K2 see one dtype, the one they serve in."""
+    and K2 see one dtype, the one they serve in.  `tensors` (parameters and
+    BatchNorm statistics by name, e.g. the EMA's) stand in for the model's
+    own."""
     dtype = model.cfg.dtype
     args = tuple(t.to(dtype) for t in (image, radar, points))
-    if dtype == torch.float32:
+    if dtype == torch.float32 and tensors is None:
         return model(*args)
     norms = {n for n, m in model.named_modules() if isinstance(m, BatchNorm)}
+    params = dict(model.named_parameters())
+    if tensors is not None:
+        params.update(tensors)
     params = {n: p if n.rpartition(".")[0] in norms else p.to(dtype)
-              for n, p in model.named_parameters()}
+              for n, p in params.items()}
     return torch.func.functional_call(model, params, args)
 
 

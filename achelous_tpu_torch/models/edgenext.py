@@ -53,6 +53,9 @@ class LayerNorm2d(nn.LayerNorm):
 class PositionalEncodingFourier(nn.Module):
     """Learned 1x1 projection of the static Fourier table -> [1, dim, h, w]."""
 
+    # flax holds the projection as a Dense kernel
+    FLAX_KIND = {"token_projection": "dense"}
+
     def __init__(self, dim: int, hidden_dim: int = 32):
         super().__init__()
         self.hidden_dim = hidden_dim

@@ -102,6 +102,8 @@ class Attention4D(nn.Module):
     """Multi-head attention over a res x res map with a relative-position
     bias and talking heads; with `stride`, a depthwise stride conv first and
     a bilinear resize back to `resolution` after."""
+    # flax holds the head mixes as [h, h] parameters
+    FLAX_KIND = {"talking_head1": "param", "talking_head2": "param"}
 
     def __init__(self, dim: int, key_dim: int = 32, num_heads: int = 8,
                  attn_ratio: int = 4, resolution: int = 7,
@@ -239,7 +241,7 @@ class EFBlock(nn.Module):
     """FFN block, or attention + FFN block, each branch scaled by a layer
     scale that starts at 1e-5."""
     # flax keeps the layer scales as [dim] vectors: no weight decay
-    FLAX_VECTORS = ("layer_scale_1", "layer_scale_2")
+    FLAX_KIND = {"layer_scale_1": "vector", "layer_scale_2": "vector"}
 
     def __init__(self, dim: int, mlp_ratio: float, use_attn: bool,
                  resolution: int, stride: Optional[int] = None):

@@ -76,6 +76,9 @@ class PointNetEncoder(nn.Module):
 
 
 class PointNetSeg(nn.Module):
+    # flax holds every 1x1 conv of PointNet as a Dense kernel
+    FLAX_KIND = {"": "dense"}
+
     def __init__(self, num_classes: int, channel: int = 5):
         super().__init__()
         self.feat = PointNetEncoder(channel)

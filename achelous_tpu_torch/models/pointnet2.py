@@ -95,6 +95,9 @@ class FeaturePropagation(nn.Module):
 
 
 class PointNet2Seg(nn.Module):
+    # flax holds every 1x1 conv of PointNet++ as a Dense kernel
+    FLAX_KIND = {"": "dense"}
+
     def __init__(self, num_classes: int, channel: int = 5,
                  npoints: Sequence[int] = (128, 32, 8, 4),
                  radii: Sequence[float] = (0.1, 0.2, 0.4, 0.8),

@@ -24,7 +24,11 @@ v(o-1)) / 2` along each axis, where `o - floor(o)` gives the one-sided
 `v(o+1) - v(o)`.  Every offset is integer at the zero initialisation of
 the offset convs, so the first training step depends on it.
 `banded_deform_samples` adds the difference as a term whose value is 0
-(`_TieSlope`), only when the offset takes a gradient.
+(`_TieSlope`), only when the offset takes a gradient.  On the bound,
+o = +-band, JAX differs twice more: its hat window stops at the band, so
+the cell past it adds no half slope, and `jnp.clip` passes half of what
+arrives where `clamp` passes all of it; the tie term leaves out that
+cell, and another zero-valued term takes back the other half (`_clip`).
 
 Both functions compute in float32 and return the input's dtype, as the
 kernels do.
@@ -56,9 +60,10 @@ def banded_deform_samples(x: torch.Tensor, offset: torch.Tensor,
     xf = x.float().reshape(b, c, h * w)
     oy = offset[:, 0::2].float()                     # [B,9,H,W]
     ox = offset[:, 1::2].float()
+    ties = (band is not None and torch.is_grad_enabled()
+            and offset.requires_grad)
     if band is not None:
-        oy = oy.clamp(-band, band)
-        ox = ox.clamp(-band, band)
+        oy, ox = _clip(oy, band, ties), _clip(ox, band, ties)
     fy, fx = torch.floor(oy), torch.floor(ox)
     wy1, wx1 = oy - fy, ox - fx
     # integer base corner; offsets beyond the image are clamped to a
@@ -80,8 +85,6 @@ def banded_deform_samples(x: torch.Tensor, offset: torch.Tensor,
         idx = idx.reshape(b, 1, TAPS * h * w).expand(b, c, -1)
         return torch.gather(src, 2, idx).reshape(b, c, TAPS, h, w), valid
 
-    ties = (band is not None and torch.is_grad_enabled()
-            and offset.requires_grad)
     acc, gathered = None, {}
     for dy, wy in ((0, 1.0 - wy1), (1, wy1)):
         for dx, wx in ((0, 1.0 - wx1), (1, wx1)):
@@ -93,28 +96,49 @@ def banded_deform_samples(x: torch.Tensor, offset: torch.Tensor,
     if ties:
         with torch.no_grad():
             slopes = _tie_slopes(lambda dy, dx: gathered.get((dy, dx))
-                                 or corner(xf, dy, dx), wy1, wx1)
+                                 or corner(xf, dy, dx), oy, ox, wy1, wx1,
+                                 band)
         acc = (acc + _TieSlope.apply(oy[:, None], slopes[0])
                + _TieSlope.apply(ox[:, None], slopes[1]))
     acc = acc * mask.float()[:, None]                # [B,C,9,H,W]
     return acc.transpose(1, 2).reshape(b, TAPS * c, h, w).to(x.dtype)
 
 
-def _tie_slopes(corner, wy1, wx1):
+def _clip(o: torch.Tensor, band: int, grad: bool) -> torch.Tensor:
+    """o clipped to [-band, band].  With `grad`, the slope where |o| ==
+    band is `jnp.clip`'s 1/2, not `clamp`'s 1: a term whose value is 0
+    takes back the other half there."""
+    out = o.clamp(-band, band)
+    if grad:
+        at = torch.where(o.abs() == band, o, 0.0)
+        out = out - 0.5 * (at - at.detach())
+    return out
+
+
+def _tie_slopes(corner, oy, ox, wy1, wx1, band: int):
     """What JAX's offset gradient adds to the one-sided one at integer
     offsets, per channel, along y and x ([B,C,9,H,W] each; 0 where the
     offset is not integer): -(v(o+1) + v(o-1)) / 2 along the axis, the
-    other axis interpolated."""
+    other axis interpolated.  JAX's hat window ends at the band, so on
+    the bound the cell past it adds no half: there the term is
+    -v(o+1) - v(o-1)/2 at o = band and -v(o+1)/2 at o = -band."""
     def at(dy, dx):
         v, valid = corner(dy, dx)
         return v * valid[:, None]
 
     wy = (1.0 - wy1)[:, None], wy1[:, None]
     wx = (1.0 - wx1)[:, None], wx1[:, None]
-    along_y = sum(wx[dx] * (at(1, dx) + at(-1, dx)) for dx in (0, 1))
-    along_x = sum(wy[dy] * (at(dy, 1) + at(dy, -1)) for dy in (0, 1))
-    return (torch.where((wy1 == 0)[:, None], -0.5 * along_y, 0.0),
-            torch.where((wx1 == 0)[:, None], -0.5 * along_x, 0.0))
+
+    def slope(o, w1, up, down):
+        o = o[:, None]
+        s = (-0.5 * (up + down) - torch.where(o == band, 0.5 * up, 0.0)
+             + torch.where(o == -band, 0.5 * down, 0.0))
+        return torch.where((w1 == 0)[:, None], s, 0.0)
+
+    return (slope(oy, wy1, sum(wx[dx] * at(1, dx) for dx in (0, 1)),
+                  sum(wx[dx] * at(-1, dx) for dx in (0, 1))),
+            slope(ox, wx1, sum(wy[dy] * at(dy, 1) for dy in (0, 1)),
+                  sum(wy[dy] * at(dy, -1) for dy in (0, 1))))
 
 
 class _TieSlope(torch.autograd.Function):
@@ -172,6 +196,8 @@ class DeformableConv2d(nn.Module):
     offset/modulator convs run in PyTorch, K2 samples, and a matmul
     projects.
     """
+    # flax holds the deformable weight as a plain parameter
+    FLAX_KIND = {"regular_conv": "param"}
 
     def __init__(self, cin: int, features: int, band: Optional[int] = None):
         super().__init__()

@@ -8,6 +8,14 @@ A tensor on the CPU goes to the plain PyTorch version in ops/attention.py.
 A CUDA tensor goes to the kernel or the call raises: nothing falls back.
 The wrapper counts its kernel launches in its `launches` attribute.
 
+Where a gradient is asked for, the wrapper is a `torch.autograd.Function`
+(`FusedBiasAttention`) built as K1's and K2's are (ops/hopper_deform.py):
+the forward is the kernel and saves only its eight inputs; the backward
+runs `reference_bias_attention` again under autograd and pulls the
+output's gradient back through it.  The JAX package trains
+EfficientFormerV2 through that same plain composition; neither package
+has a backward kernel.  `launches` counts forward launches only.
+
 All inputs share one dtype, float32 or bf16 (the caller rounds the bias
 table and the head mixes to the compute dtype first, as the JAX package
 does; Attention4D caches them so rounded); the kernel runs both products
@@ -21,6 +29,8 @@ import ctypes
 import torch
 
 from achelous_tpu_torch.kernels import build
+from achelous_tpu_torch.ops.attention import reference_bias_attention
+from achelous_tpu_torch.ops.hopper_deform import pullback, wants_grad
 
 MAX_HEADS = 8         # the head mixes keep one value per head in registers
 MAX_KEY_DIM = 64      # every head's keys staged in shared memory, 16 at least
@@ -34,10 +44,37 @@ def fused_bias_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          th1_b: torch.Tensor, th2_w: torch.Tensor,
                          th2_b: torch.Tensor, scale: float) -> torch.Tensor:
     """K3.  q, k [B,h,N,dk]; v [B,h,N,dv]; bias [h,N,N]; th*_w [h,h] as
-    [g_out, h_in]; th*_b [h].  Returns [B,h,N,dv] in q's dtype."""
+    [g_out, h_in]; th*_b [h].  Returns [B,h,N,dv] in q's dtype;
+    differentiable (`FusedBiasAttention`)."""
+    args = (q, k, v, bias, th1_w, th1_b, th2_w, th2_b)
+    if wants_grad(*args):
+        return FusedBiasAttention.apply(*args, scale)
+    return _attention_forward(*args, scale)
+
+
+class FusedBiasAttention(torch.autograd.Function):
+    """K3 with a gradient: the kernel forward; the backward is the autograd
+    of `reference_bias_attention` on the saved inputs, which reaches the
+    float32 bias table and head mixes through the caller's gather and
+    casts."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, th1_w, th1_b, th2_w, th2_b, scale):
+        ctx.scale = scale
+        ctx.save_for_backward(q, k, v, bias, th1_w, th1_b, th2_w, th2_b)
+        return _attention_forward(q, k, v, bias, th1_w, th1_b, th2_w, th2_b,
+                                  scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        scale = ctx.scale
+        return pullback(ctx, lambda *a: reference_bias_attention(*a, scale),
+                        g) + (None,)
+
+
+def _attention_forward(q, k, v, bias, th1_w, th1_b, th2_w, th2_b, scale):
     args = (q, k, v, bias, th1_w, th1_b, th2_w, th2_b)
     if q.device.type == "cpu":
-        from achelous_tpu_torch.ops.attention import reference_bias_attention
         return reference_bias_attention(*args, scale)
     name = "fused_bias_attention"
     if q.device.type != "cuda":

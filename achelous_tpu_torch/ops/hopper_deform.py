@@ -103,11 +103,11 @@ def unpack_radarconv_weights(wconv: torch.Tensor, bconv: torch.Tensor,
                  (w_off, b_off, w[:, 2], bconv[:, 2], weight))
 
 
-def _wants_grad(*ts: torch.Tensor) -> bool:
+def wants_grad(*ts: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and any(t.requires_grad for t in ts)
 
 
-def _pullback(ctx, plain, g: torch.Tensor):
+def pullback(ctx, plain, g: torch.Tensor):
     """The gradients of `plain` at the inputs `ctx` saved, for those that
     need one (JAX's `jax.vjp` of the plain composition)."""
     need = ctx.needs_input_grad[:len(ctx.saved_tensors)]
@@ -141,7 +141,7 @@ class FusedRadarConv(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        return _pullback(ctx, _plain_radarconv(ctx.band), g) + (None,)
+        return pullback(ctx, _plain_radarconv(ctx.band), g) + (None,)
 
 
 def fused_radarconv(x: torch.Tensor, wconv: torch.Tensor,
@@ -150,7 +150,7 @@ def fused_radarconv(x: torch.Tensor, wconv: torch.Tensor,
     """K1: a whole RadarConv, one launch.  x [B,C,H,W] raw; the weights as
     `pack_radarconv_weights` lays them out; integer band.  Returns
     [B,Cout,H,W] in x's dtype; differentiable (`FusedRadarConv`)."""
-    if _wants_grad(x, wconv, bconv, wproj):
+    if wants_grad(x, wconv, bconv, wproj):
         return FusedRadarConv.apply(x, wconv, bconv, wproj, band)
     return _fused_forward(x, wconv, bconv, wproj, band)
 
@@ -239,7 +239,7 @@ class DeformSamples(torch.autograd.Function):
     def backward(ctx, g):
         from achelous_tpu_torch.ops.deform import banded_deform_samples
         band = ctx.band
-        return _pullback(ctx, lambda x, o, m: banded_deform_samples(
+        return pullback(ctx, lambda x, o, m: banded_deform_samples(
             x, o, m, band), g) + (None,)
 
 
@@ -248,7 +248,7 @@ def deform_samples(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
     """K2: modulated bilinear samples.  x [B,C,H,W], offset [B,18,H,W],
     mask [B,9,H,W], all one dtype; band an int >= 0 or None (no clip).
     Returns [B,9C,H,W] in x's dtype; differentiable (`DeformSamples`)."""
-    if _wants_grad(x, offset, mask):
+    if wants_grad(x, offset, mask):
         return DeformSamples.apply(x, offset, mask, band)
     return _samples_forward(x, offset, mask, band)
 

@@ -87,7 +87,8 @@ def sample_and_group(npoint: int, radius: float, nsample: int,
     xyz's dtype (float32), as the JAX package promotes them."""
     from achelous_tpu_torch.ops.hopper_pointops import farthest_point_sample \
         as fps
-    new_xyz = index_points(xyz, fps(xyz, npoint))
+    # the indices take no gradient: K4 sees xyz without its graph
+    new_xyz = index_points(xyz, fps(xyz.detach().contiguous(), npoint))
     g_idx = ball_query(radius, nsample, xyz, new_xyz)
     grouped = index_points(xyz, g_idx) - new_xyz[:, :, None, :]
     if feats is not None:

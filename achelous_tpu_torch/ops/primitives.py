@@ -196,8 +196,9 @@ class ShuffleAttention(nn.Module):
 
     G = 4
     # flax keeps these as [C/2G] vectors ("flat" in the JAX mapping), so
-    # they take no weight decay (train/train_state.py decay_mask)
-    FLAX_VECTORS = ("cweight", "cbias", "sweight", "sbias")
+    # they take no weight decay (core/init.py flax_kinds)
+    FLAX_KIND = dict.fromkeys(("cweight", "cbias", "sweight", "sbias"),
+                              "vector")
 
     def __init__(self, channels: int):
         super().__init__()

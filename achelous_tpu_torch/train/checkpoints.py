@@ -3,8 +3,8 @@ achelous_tpu/train/checkpoints.py, which saves with orbax).
 
 `torch.save` of the state's tensors and counters under
 `<directory>/<name>.pt`: the model's state dict (parameters and BatchNorm
-statistics), log_vars, the optimizer state, the EMA and the counters, so
-a resume is exact.  The policy is the reference's (utils_fit.py:345-381):
+statistics), log_vars, the optimizer state, the EMA, the counters and the
+host generators' states, so a resume is exact.  The policy is the reference's (utils_fit.py:345-381):
 a periodic epoch checkpoint named by its losses, `best_epoch_weights`
 (val loss <= the best so far) and `last_epoch_weights`; the newest
 `keep` periodic checkpoints are kept and older ones removed.
@@ -28,7 +28,8 @@ def state_dict(state: TrainState) -> dict:
             "opt_state": state.opt_state,
             "ema_params": state.ema_params,
             "ema_batch_stats": state.ema_batch_stats,
-            "ema_updates": state.ema_updates}
+            "ema_updates": state.ema_updates,
+            "data_rng": state.data_rng}
 
 
 @torch.no_grad()
@@ -49,6 +50,7 @@ def load_state_dict(state: TrainState, saved: dict) -> TrainState:
         copy_tree(getattr(state, key), saved[key])
     state.step, state.epoch = saved["step"], saved["epoch"]
     state.ema_updates = saved["ema_updates"]
+    state.data_rng = saved.get("data_rng", {})
     return state
 
 

@@ -16,8 +16,8 @@ The optimizer follows optax's chain as the JAX package builds it:
 trace t <- g + m t, the update g + m t), the learning rate applied after
 it; Adam is `scale_by_adam(b1=momentum, b2=0.999)`.  The decay mask is
 "the JAX counterpart of the parameter has rank >= 2": torch's rank, save
-for the parameters that flax keeps as vectors (`FLAX_VECTORS` of their
-module), which torch shapes [1,C,1,1] or [C,1,1].
+for the parameters that flax keeps as vectors (kind "vector" in
+`core/init.flax_kinds`), which torch shapes [1,C,1,1] or [C,1,1].
 
 A step whose loss or global gradient norm is not finite changes nothing
 (parameters, optimizer state, BatchNorm statistics, EMA) but the step
@@ -31,7 +31,7 @@ The step's phases are named for torch.profiler (`train_step/forward`,
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
@@ -39,6 +39,7 @@ from torch import nn
 from torch.profiler import record_function
 
 from achelous_tpu_torch.core.config import AchelousConfig
+from achelous_tpu_torch.core.init import flax_kinds, weights_init
 from achelous_tpu_torch.losses.detection import YoloXLoss
 from achelous_tpu_torch.losses.multitask import (cagrad_combine, mgda_combine,
                                                  uncertainty_weighted)
@@ -56,9 +57,9 @@ ADAM_B2, ADAM_EPS = 0.999, 1e-8
 class TrainConfig:
     """The reference train.py flags (train.py:35-57), with the JAX
     package's defaults; see achelous_tpu/train/train_state.py for each.
-    Its freeze_epochs, init_type and init_gain come with the epoch loop
-    and the init schemes (ROADMAP.md §0); the step takes the freeze as an
-    argument and the model keeps the flax default initialisation."""
+    `fit` passes the backbone freeze to the step while epoch <
+    freeze_epochs; `create_train_state` re-draws the weights by
+    `init_type` (None keeps the flax default initialisation)."""
     batch_size: int = 32
     epochs: int = 100
     lr_init: float = 0.03
@@ -72,6 +73,9 @@ class TrainConfig:
     ema_tau: float = 2000.0
     max_gt: int = 50                 # GT padding of the batches
     mtl: str = "sum"                 # sum | uncertainty | mgda | cagrad
+    freeze_epochs: int = 0           # backbone frozen for these epochs
+    init_type: Optional[str] = None  # core/init.INIT_TYPES, or None
+    init_gain: float = 0.02
     grad_accum: int = 1              # micro-batches a step, one update
 
 
@@ -81,7 +85,10 @@ class TrainState:
     parameters and the BatchNorm statistics (its buffers); `opt_state`
     holds, per trainable name (the model's parameter names and
     "log_vars"), the SGD momentum trace (`{"trace": ...}`) or Adam's
-    moments (`{"mu": ..., "nu": ..., "count": n}`)."""
+    moments (`{"mu": ..., "nu": ..., "count": n}`).  `data_rng` holds the
+    host generators' states at the end of the last epoch `fit` ran (its
+    shuffle and each dataset's), so a resumed run draws what an
+    uninterrupted one would."""
     step: int
     epoch: int
     model: Achelous
@@ -90,6 +97,7 @@ class TrainState:
     ema_params: dict
     ema_batch_stats: dict
     ema_updates: int
+    data_rng: dict = dataclasses.field(default_factory=dict)
 
     def trainable(self) -> dict[str, torch.Tensor]:
         out = dict(self.model.named_parameters())
@@ -108,20 +116,20 @@ def decay_mask(model: nn.Module) -> set[str]:
     """Names of the parameters that take weight decay: those whose JAX
     counterpart has rank >= 2 (conv and dense kernels, XCA temperatures),
     not norms, biases or flax-flat vectors."""
-    out = set()
-    for mname, m in model.named_modules():
-        flat = getattr(m, "FLAX_VECTORS", ())
-        for pname, p in m.named_parameters(recurse=False):
-            if p.ndim >= 2 and pname not in flat:
-                out.add(f"{mname}.{pname}" if mname else pname)
-    return out
+    kinds = flax_kinds(model)
+    return {n for n, p in model.named_parameters()
+            if p.ndim >= 2 and kinds.get(n) != "vector"}
 
 
 def create_train_state(model: Achelous, cfg: AchelousConfig,
-                       tcfg: TrainConfig) -> TrainState:
+                       tcfg: TrainConfig, seed: int = 0) -> TrainState:
     """A fresh state around a training-form model
-    (`create_model(..., train=True)`): zero optimizer state and log_vars,
-    the EMA at the model's values."""
+    (`create_model(..., train=True)`): its weights re-drawn by
+    `tcfg.init_type` if set (`core/init.weights_init`, from `seed`), zero
+    optimizer state and log_vars, the EMA at the model's values."""
+    if tcfg.init_type is not None:
+        weights_init(model, tcfg.init_type, tcfg.init_gain,
+                     torch.Generator().manual_seed(seed))
     dev = next(model.parameters()).device
     log_vars = torch.zeros(3, dtype=torch.float32, device=dev,
                            requires_grad=True)

@@ -27,6 +27,26 @@ parameters), in three phases:
     T3  6 steps at batch 32 in bf16 with the default TrainConfig (K1 x4,
         K2 x4 a step), one MGDA and one CAGrad step, and a step on a
         batch with a NaN, which must change nothing but the step count
+    T4  K3's autograd Function against torch.autograd of its plain
+        version at EF's training shapes (batch 32) and the serving ones;
+        every Attention4D parameter of an EF-GDF-PN-S0 training model gets
+        a gradient
+    T5  EF-GDF-PN-S0 (K3 x4 a step) and EN-GDF-PN2-S0 (K4 x4 a step) at
+        batch 32 in bf16, a few timed steps each, every kernel held against
+        its plain version on the inputs of the first step's launches; K4's
+        indices at batch 32 with a valid mask and without; one float32 step
+        of EF-GDF-PN-S0 at batch 8 on the card against the CPU
+
+and runs the trainer's entry point:
+
+    F1  `fit` for EN-GDF-PN-S0 at 320x320 on a small WaterScenes-layout
+        tree with raw radar CSVs (no pre-rasterized maps), so every
+        batch's radar map is splatted on the card: 2 epochs with the
+        online evaluation at the end, then a resume from the epoch-1
+        checkpoint; the card's splat equals the CPU's on the same points
+        (Pillow writes and decodes the tree's images); K1 and K2 held
+        against their plain versions on the inputs of fit's launches at
+        its batch 8, in training and in evaluation
   K2 is also held against its plain version on the
 exact route (band None) at C = 3, 320^2, and K4 at batch 3; K2's and K4's
 launch plans are logged.  K1 is timed as its single launch on weights packed
@@ -47,6 +67,7 @@ from __future__ import annotations
 import contextlib
 import copy
 import json
+import os
 import subprocess
 import time
 
@@ -110,6 +131,29 @@ STEP_NUDGE = 1e-6
 # logs that reading at batch 2 and holds the step at batch 8.
 STEP_BATCH = 8
 STEP_BATCHES = (2, STEP_BATCH)
+# T4: K3 at EF's training shapes (batch 32, the 4 Attention4D calls of a
+# step, all N = 100 at 320^2) and the serving ones
+K3_GRAD_CASES = ((TRAIN_BATCH, K3_N), (1, K3_N))
+# The Attention4D parameters whose gradient reaches them only through K3,
+# less those whose exact gradient is 0 (q.0's and k.0's biases in front of
+# a train-mode BatchNorm; k.1's bias and th1's bias, which shift a whole
+# row of logits that the softmax then removes): T4 and the tests hold
+# these nonzero
+K3_GRADIENT = ("q.0.weight", "q.1.weight", "q.1.bias", "k.0.weight",
+               "k.1.weight", "attention_biases", "talking_head1.weight",
+               "talking_head2.weight", "talking_head2.bias")
+# T5: the EF and PN2 training paths, their kernels' launches a step, and
+# their steps (the first a warm-up)
+TRAIN_PATHS = (
+    ("EF-GDF-PN-S0", "ef", "pn",
+     {"fused_radarconv": 4, "deform_samples": 4, "fused_bias_attention": 4}),
+    ("EN-GDF-PN2-S0", "en", "pn2",
+     {"fused_radarconv": 4, "deform_samples": 4, "farthest_point_sample": 4}),
+)
+PATH_STEPS = 4
+# F1: the tree (frames of 480x270, a quarter of WaterScenes' 1920x1080
+# camera), its batch, epochs
+FIT_TRAIN, FIT_VAL, FIT_SIZE, FIT_BATCH, FIT_EPOCHS = 16, 8, (480, 270), 8, 2
 # (name, backbone, pc_model, launches a request of each kernel)
 PATHS = (
     ("EN-GDF-PN-S0", "en", "pn",
@@ -502,6 +546,100 @@ def check_fps_on_path(npoints, card_records, ref_records):
                                      f"on the card differ from plain")
 
 
+@contextlib.contextmanager
+def on_path_inputs(records):
+    """While open, each kernel's launch site keeps a copy of the inputs of
+    every launch in `records`, as (name, args); the launches and their
+    counts are the main path's own."""
+    from achelous_tpu_torch.ops import (hopper_attention, hopper_deform,
+                                        hopper_pointops)
+    sites = ((hopper_deform, "_fused_forward", "fused_radarconv"),
+             (hopper_deform, "_samples_forward", "deform_samples"),
+             (hopper_attention, "_attention_forward", "fused_bias_attention"),
+             (hopper_pointops, "launch_fps", "farthest_point_sample"))
+
+    def recorder(launch, name):
+        def record(*args):
+            records.append((name, [a.detach().clone() if torch.is_tensor(a)
+                                   else a for a in args]))
+            return launch(*args)
+        return record
+    saved = [(mod, attr, getattr(mod, attr)) for mod, attr, _ in sites]
+    try:
+        for (mod, attr, name), (_, _, launch) in zip(sites, saved):
+            setattr(mod, attr, recorder(launch, name))
+        yield records
+    finally:
+        for mod, attr, launch in saved:
+            setattr(mod, attr, launch)
+
+
+def check_on_path(label, records):
+    """Each recorded launch against the plain version on the same inputs:
+    in the path's dtype (TOL) and, for K1-K3, again with the inputs of
+    that dtype taken to float32, TF32 off; K4's indices equal, with its
+    valid mask and without."""
+    from achelous_tpu_torch.ops import (hopper_attention, hopper_deform,
+                                        hopper_pointops)
+    from achelous_tpu_torch.ops.attention import reference_bias_attention
+    from achelous_tpu_torch.ops.deform import banded_deform_samples
+    from achelous_tpu_torch.ops.pointops import farthest_point_sample
+    kernels = {"fused_radarconv": hopper_deform._fused_forward,
+               "deform_samples": hopper_deform._samples_forward,
+               "fused_bias_attention": hopper_attention._attention_forward,
+               "farthest_point_sample": hopper_pointops.launch_fps}
+    # the launch's last argument: K1's and K2's band, K3's scale
+    plains = {
+        "fused_radarconv": lambda x, *w, last:
+            hopper_deform._plain_radarconv(last)(x, *w),
+        "deform_samples": lambda *a, last: banded_deform_samples(*a, last),
+        "fused_bias_attention": lambda *a, last:
+            reference_bias_attention(*a, last)}
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    worst, seen = {}, {}
+    with torch.no_grad():
+        for name, args in records:
+            kernel = kernels[name]
+            if name == "farthest_point_sample":
+                xyz, npoint, valid = args[:3]
+                cases = [(valid, "")] + ([(None, " no mask")]
+                                         if valid is not None else [])
+                for v, tag in cases:
+                    got = kernel(xyz, npoint, v, None)
+                    if not torch.equal(got, farthest_point_sample(xyz, npoint,
+                                                                  v)):
+                        raise AssertionError(
+                            f"{label} {name} {tuple(xyz.shape)}{tag}: "
+                            f"indices differ from the plain version")
+                key = f"{name} {tuple(xyz.shape)}"
+                seen[key] = seen.get(key, 0) + 1
+                continue
+            *ts, last = args
+            dtypes = [ts[0].dtype] + ([torch.float32] if ts[0].dtype !=
+                                      torch.float32 else [])
+            for dt in dtypes:
+                # K1's packed weights stay float32 whatever x's dtype
+                a = [t.to(dt) if t.dtype == ts[0].dtype else t for t in ts]
+                err = check(f"{label} {name} {tuple(ts[0].shape)} {dt}",
+                            kernel(*a, last), plains[name](*a, last=last),
+                            dt, {dt: 0.0})
+                worst[(name, dt)] = max(worst.get((name, dt), 0.0), err)
+            key = (f"{name} {tuple(ts[0].shape)} "
+                   f"{str(ts[0].dtype).split('.')[-1]}")
+            seen[key] = seen.get(key, 0) + 1
+    torch.cuda.synchronize()
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32
+    log(f"{label}: {len(records)} on-path launches held against the plain "
+        f"version ({'; '.join(f'{k} x{n}' for k, n in seen.items())}); "
+        f"max abs err " + ", ".join(
+            f"{n} {str(d).split('.')[-1]} {e:.3g}"
+            for (n, d), e in sorted(worst.items(), key=str)))
+
+
 def serve_path(dev, label, backbone, pc_model, want_rose):
     """Phase 4: serve REQUESTS requests through entry() on one path, with
     the launch counts set to 0 just before and read just after; check the
@@ -630,10 +768,20 @@ def phase(label):
 
 
 def grads_of(fn, leaves, g):
-    """fn's output on fresh leaves and its gradients w.r.t. them."""
+    """fn's output on fresh leaves and its gradients w.r.t. them, computed
+    with torch's deterministic algorithms.  A Function's backward is the
+    plain version's autograd on the same inputs, so the two sides of a
+    comparison run one computation twice; without this, the atomics of
+    its gather backward (a scatter-add) and of cuDNN's weight-gradient
+    convs sum in another order each time, and a batch-32 weight gradient
+    of K1 differs by float32 noise (6.5e-4 on a value below 5.5)."""
     ins = [t.detach().clone().requires_grad_(True) for t in leaves]
-    out = fn(*ins)
-    return out, torch.autograd.grad(out, ins, g)
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        out = fn(*ins)
+        return out, torch.autograd.grad(out, ins, g)
+    finally:
+        torch.use_deterministic_algorithms(False)
 
 
 def check_grads(name, got, want, dtype):
@@ -1035,7 +1183,317 @@ def train_phases(dev):
         return train_slice(dev)
 
 
+# ---------------------------------------------------------------------------
+# T4 gradients of K3, T5 the EF and PN2 training paths, F1 `fit`
+# ---------------------------------------------------------------------------
+
+
+def check_attention_gradients(dev):
+    """T4: K3's Function against plain autograd on the card, float32 (TF32
+    off) and bf16, at K3_GRAD_CASES; the training shape timed in bf16."""
+    from achelous_tpu_torch.ops.attention import reference_bias_attention
+    kernel = wrappers()["fused_bias_attention"]
+    scale = K3_DK ** -0.5
+    rng = np.random.RandomState(2)
+
+    def through_function(*a):
+        out = kernel(*a, scale)
+        if type(out.grad_fn).__name__ != "FusedBiasAttentionBackward":
+            raise AssertionError("fused_bias_attention: output has no "
+                                 "grad_fn of its Function")
+        return out
+
+    def plain(*a):
+        return reference_bias_attention(*a, scale)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for b, n in K3_GRAD_CASES:
+        args = k3_case(rng, b, n, dev)
+        for dt in (torch.float32, torch.bfloat16):
+            a = [x.to(dt) for x in args]
+            g = torch.randn(b, K3_HEADS, n, K3_DV, device=dev).to(dt)
+            got_out, got = grads_of(through_function, a, g)
+            want_out, want = grads_of(plain, a, g)
+            torch.cuda.synchronize()
+            label = f"fused_bias_attention B={b} N={n} {dt}"
+            check(label, got_out, want_out, dt, {dt: 0.0})
+            worst[dt] = max(worst[dt], check_grads(label, got, want, dt))
+        if b != TRAIN_BATCH:
+            continue
+        leaves = [x.detach().requires_grad_(True) for x in a]  # bf16
+        out = through_function(*leaves)
+        with torch.no_grad():
+            t_k = device_ms(lambda: kernel(*a, scale))
+            t_p = device_ms(lambda: plain(*a), 3)
+        t_b = cuda_ms(lambda: torch.autograd.grad(out, leaves, g,
+                                                  retain_graph=True),
+                      iters=3, warmup=1)
+        calls = len(K3_CALLS)
+        log(f"T4 fused_bias_attention B={b} N={n} bf16, one call: kernel "
+            f"forward {t_k:.4f} ms (plain {t_p:.4f} ms), backward (plain "
+            f"recompute + autograd) {t_b:.4f} ms as issued; a training "
+            f"step's {calls} calls: forward {calls * t_k:.4f} ms, backward "
+            f"{calls * t_b:.4f} ms")
+    log(f"T4 fused_bias_attention: Function gradients vs plain autograd, "
+        f"max abs err f32 {worst[torch.float32]:.3g}, bf16 "
+        f"{worst[torch.bfloat16]:.3g}")
+
+
+def check_attention4d_gradients(dev):
+    """T4: one backward of a bf16 EF-GDF-PN-S0 training model gives every
+    parameter of every Attention4D a gradient, through 4 K3 launches;
+    nonzero for those it reaches only through K3, which got none while
+    K3's output had no grad_fn (less those whose exact gradient is 0)."""
+    from achelous_tpu_torch.core.config import AchelousConfig
+    from achelous_tpu_torch.data.synthetic import synthetic_batch
+    from achelous_tpu_torch.entry import perturb_attention
+    from achelous_tpu_torch.models.achelous import forward_compute
+    cfg = AchelousConfig(resolution=TRAIN_RES, backbone="ef",
+                         dtype=torch.bfloat16)
+    model = train_model(cfg, dev)
+    perturb_attention(model)
+    batch = synthetic_batch(cfg, 2, 8, seed=3, device=dev)
+    w = wrappers()
+    for f in w.values():
+        f.launches = 0
+    det, sem, lane, pc = forward_compute(model, batch["image"],
+                                         batch["radar"], batch["pc"])
+    counts = {n: f.launches for n, f in w.items() if f.launches}
+    if counts != TRAIN_PATHS[0][3]:
+        raise AssertionError(f"T4 forward launches {counts}, want "
+                             f"{TRAIN_PATHS[0][3]}")
+    loss = sum(t.float().square().mean() for t in (*det, sem, lane)) \
+        + pc.float().mean()
+    loss.backward()
+    params = {n: p for n, p in model.named_parameters()
+              if ".token_mixer." in n}
+    missing = [n for n, p in params.items() if p.grad is None]
+    through = [n for n in params if n.endswith(K3_GRADIENT)]
+    dead = [n for n in through if not bool(params[n].grad.abs().sum() > 0)]
+    if len(params) != 2 * 25 + 2 * 29 or missing or dead:
+        raise AssertionError(f"Attention4D parameters without a gradient: "
+                             f"{missing}, with a zero one: {dead} (of "
+                             f"{len(params)})")
+    log(f"T4: all {len(params)} Attention4D parameters got a gradient from "
+        f"one backward, nonzero for the {len(through)} it reaches only "
+        f"through K3 (forward launches {counts})")
+
+
+def train_paths(dev):
+    """T5: EF-GDF-PN-S0 and EN-GDF-PN2-S0 at 320^2, batch 32, bf16 compute
+    on float32 parameters, the default TrainConfig: PATH_STEPS steps each
+    (the first a warm-up), each kernel's launches a step held; then one
+    float32 step (TF32 off) of EF-GDF-PN-S0 at batch STEP_BATCH on the card
+    and on the CPU.  Returns the kernels' launches."""
+    from achelous_tpu_torch.core.config import AchelousConfig
+    from achelous_tpu_torch.data.synthetic import (synthetic_arrays,
+                                                   synthetic_batch)
+    from achelous_tpu_torch.entry import perturb_attention
+    from achelous_tpu_torch.train.schedule import get_lr_scheduler, scale_lr
+    from achelous_tpu_torch.train.train_state import (TrainConfig,
+                                                      create_train_state,
+                                                      make_train_step)
+    totals = {}
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH)
+    init_lr, min_lr = scale_lr(tcfg.lr_init, tcfg.batch_size, tcfg.optimizer)
+    lr = get_lr_scheduler(tcfg.lr_decay, init_lr, min_lr, tcfg.epochs)(1)
+    w = wrappers()
+    for label, backbone, pc_model, want in TRAIN_PATHS:
+        cfg = AchelousConfig(resolution=TRAIN_RES, backbone=backbone,
+                             pc_model=pc_model, dtype=torch.bfloat16)
+        batches = [synthetic_batch(cfg, TRAIN_BATCH, tcfg.max_gt,
+                                   seed=200 + i, device=dev)
+                   for i in range(PATH_STEPS)]
+        model = train_model(cfg, dev)
+        perturb_attention(model)
+        state = create_train_state(model, cfg, tcfg)
+        step = make_train_step(cfg, tcfg)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        times, records = [], []
+        for i, batch in enumerate(batches):
+            for f in w.values():
+                f.launches = 0
+            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            with (on_path_inputs(records) if i == 0
+                  else contextlib.nullcontext()):
+                t0.record()
+                state, m = step(state, batch, lr)
+                t1.record()
+                torch.cuda.synchronize()
+            times.append(t0.elapsed_time(t1))
+            counts = {n: f.launches for n, f in w.items() if f.launches}
+            if counts != want:
+                raise AssertionError(f"T5 {label} step {i}: launches "
+                                     f"{counts}, want {want}")
+            for n, c in counts.items():
+                totals[n] = totals.get(n, 0) + c
+            vals = {k: float(v) for k, v in m.items()}
+            if m["skipped_nonfinite"] or not all(
+                    np.isfinite(list(vals.values()))):
+                raise AssertionError(f"T5 {label} step {i}: metrics {vals}")
+            log(f"T5 {label} step {i}: {times[-1]:.1f} ms, " + ", ".join(
+                f"{k} {v:.4g}" for k, v in vals.items()))
+        peak = torch.cuda.max_memory_allocated(dev)
+        ms = float(np.median(times[1:]))
+        log(f"T5 {label} train bf16 bs{TRAIN_BATCH} 320x320: {ms:.2f} "
+            f"ms/step (median of steps 2-{PATH_STEPS}, CUDA events), "
+            f"{TRAIN_BATCH / ms * 1e3:.1f} images/s, peak memory "
+            f"{peak / 2**30:.2f} GiB (max_memory_allocated); launches a "
+            f"step {want}")
+        check_on_path(f"T5 {label} step 0", records)
+        del state, step, model, batches, records
+        torch.cuda.empty_cache()
+    time_fps_at_batch(dev)
+
+    cfg = AchelousConfig(resolution=TRAIN_RES, backbone="ef")
+    tcfg = TrainConfig()
+    model = train_model(cfg, "cpu")
+    perturb_attention(model)
+    arrays = synthetic_arrays(cfg, STEP_BATCH, tcfg.max_gt, seed=7)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    _, gm, counts = one_step(model, cfg, tcfg, arrays, dev)
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32
+    if counts != TRAIN_PATHS[0][3]:
+        raise AssertionError(f"T5 float32 step launches {counts}")
+    _, wm, _ = one_step(model, cfg, tcfg, arrays, torch.device("cpu"))
+    rel = {k: abs(gm[k] - wm[k]) / abs(wm[k]) for k in
+           ("loss", "loss_det", "loss_seg", "loss_wl", "loss_pc",
+            "grad_norm")}
+    log(f"T5 EF-GDF-PN-S0 float32 step batch {STEP_BATCH} card vs CPU, "
+        "relative: " + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()))
+    if gm["skipped_nonfinite"] or wm["skipped_nonfinite"] or max(
+            rel.values()) > STEP_LOSS_RTOL:
+        raise AssertionError(f"T5 losses/grad_norm outside {STEP_LOSS_RTOL}")
+    return totals
+
+
+def time_fps_at_batch(dev):
+    """T5: K4 at PointNet++'s four levels for a batch-32 step: its indices
+    equal the plain version's on random points, with a valid mask and
+    without, and its device time against the plain version's."""
+    from achelous_tpu_torch.ops.pointops import farthest_point_sample as plain
+    kernel = wrappers()["farthest_point_sample"]
+    rng = np.random.RandomState(3)
+    t_k = t_p = 0.0
+    for n, npoint in K4_SHAPES:
+        x = torch.from_numpy(rng.rand(TRAIN_BATCH, n, 3).astype(
+            np.float32)).to(dev)
+        valid = torch.from_numpy(rng.rand(TRAIN_BATCH, n) > 0.3).to(dev)
+        for v in (None, valid):
+            if not torch.equal(kernel(x, npoint, v), plain(x, npoint, v)):
+                raise AssertionError(
+                    f"T5 farthest_point_sample B={TRAIN_BATCH} {n}->{npoint}"
+                    f" {'with' if v is not None else 'without'} a mask: "
+                    f"indices differ from the plain version")
+        t_k += device_ms(lambda: kernel(x, npoint))
+        t_p += device_ms(lambda: plain(x, npoint), 1)
+    log(f"T5 farthest_point_sample B={TRAIN_BATCH}, a step's 4 levels: "
+        f"indices equal with and without a mask; device {t_k:.4f} ms "
+        f"(plain {t_p:.4f} ms)")
+
+
+def fit_on_the_card(dev):
+    """F1: `fit` for EN-GDF-PN-S0 at 320^2, bf16, on a WaterScenes-layout
+    tree written to a temporary directory (raw radar CSVs, no npz): the
+    card's splat of a batch against the CPU's, FIT_EPOCHS epochs with the
+    online evaluation at the last, history.jsonl, and a resume from the
+    epoch-1 checkpoint.  Returns the kernels' launches in the two runs."""
+    import tempfile
+    from achelous_tpu_torch.core.config import AchelousConfig
+    from achelous_tpu_torch.data.example import write_tree
+    from achelous_tpu_torch.data.waterscenes import (WaterScenesDataset,
+                                                     WaterScenesPaths)
+    from achelous_tpu_torch.models.achelous import create_model
+    from achelous_tpu_torch.ops.radar_splat import splat_radar_fast
+    from achelous_tpu_torch.train.checkpoints import CheckpointManager
+    from achelous_tpu_torch.train.loop import batches_from, device_batch, fit
+    from achelous_tpu_torch.train.train_state import (TrainConfig,
+                                                      create_train_state)
+    cfg = AchelousConfig(resolution=TRAIN_RES, dtype=torch.bfloat16)
+    tcfg = TrainConfig(batch_size=FIT_BATCH, epochs=FIT_EPOCHS)
+    w = wrappers()
+    with tempfile.TemporaryDirectory() as root:
+        t0 = time.perf_counter()
+        write_tree(root, FIT_TRAIN + FIT_VAL, FIT_SIZE, points=400,
+                   val=FIT_VAL)
+        train_ds = WaterScenesDataset(cfg, WaterScenesPaths.under(root))
+        val_ds = WaterScenesDataset(cfg,
+                                    WaterScenesPaths.under(root, "val.txt"))
+        log(f"F1: a WaterScenes tree of {FIT_TRAIN} + {FIT_VAL} frames of "
+            f"{FIT_SIZE[0]}x{FIT_SIZE[1]} with radar CSVs written in "
+            f"{time.perf_counter() - t0:.1f} s")
+
+        batch = next(batches_from(train_ds, cfg, FIT_BATCH, tcfg.max_gt,
+                                  False, np.random.RandomState(0)))
+        card = device_batch(batch, cfg, dev)["radar"]
+        want = splat_radar_fast(torch.from_numpy(batch["radar_points"]),
+                                torch.from_numpy(batch["radar_points_valid"]),
+                                cfg.resolution)
+        if card.shape != (FIT_BATCH, 3, TRAIN_RES, TRAIN_RES) or not \
+                torch.equal(card.cpu(), want):
+            raise AssertionError("F1: the card's radar splat differs from "
+                                 "the CPU's")
+        log(f"F1: the card's splat of a batch equals the CPU's "
+            f"({int((want[:, 0] != 0).sum())} cells set of "
+            f"{int(batch['radar_points_valid'].sum())} points)")
+
+        counts, records = {}, []
+        for name, state, epochs in (("fit", None, FIT_EPOCHS),
+                                    ("resume", "ckpt", FIT_EPOCHS)):
+            log_dir = os.path.join(root, name)
+            if state is not None:
+                ckpt = CheckpointManager(os.path.join(root, "fit", "ckpt"))
+                first = ckpt.periodic()[0]
+                state = create_train_state(create_model(cfg, dev, train=True),
+                                           cfg, tcfg)
+                state = ckpt.restore(first, state)
+                if state.epoch != 1:
+                    raise AssertionError(f"F1: {first} reads epoch "
+                                         f"{state.epoch}")
+            for f in w.values():
+                f.launches = 0
+            msgs = []
+            t0 = time.perf_counter()
+            with (on_path_inputs(records) if name == "fit"
+                  else contextlib.nullcontext()):
+                state = fit(cfg, tcfg, train_ds, val_ds, log_dir=log_dir,
+                            epochs=epochs, save_period=1, state=state,
+                            device=dev, progress=msgs.append)
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            for n, f in w.items():
+                if f.launches:
+                    counts[n] = counts.get(n, 0) + f.launches
+            hist = [json.loads(line) for line in
+                    open(os.path.join(log_dir, "history.jsonl"))]
+            want_epochs = list(range(FIT_EPOCHS - len(hist), FIT_EPOCHS))
+            if state.epoch != FIT_EPOCHS or [h["epoch"] for h in hist] != \
+                    want_epochs or "mAP50" not in hist[-1] or not all(
+                    np.isfinite(h["loss"]) for h in hist):
+                raise AssertionError(f"F1 {name}: epoch {state.epoch}, "
+                                     f"history {hist}")
+            log(f"F1 {name}: {secs:.1f} s; " + "; ".join(msgs))
+            last = hist[-1]
+            log(f"F1 {name}: epochs {[h['epoch'] for h in hist]} in "
+                f"history.jsonl, state at epoch {state.epoch}; last: "
+                + ", ".join(f"{k} {last[k]:.4g}" for k in
+                            ("loss", "val_loss", "mAP50", "miou_sem",
+                             "miou_wl", "miou_pc", "n_images")))
+    if not {"fused_radarconv", "deform_samples"} <= set(counts):
+        raise AssertionError(f"F1 launches {counts}")
+    log(f"F1 launches in both runs {counts}")
+    check_on_path("F1 fit", records)
+    return counts
+
+
 def main():
+    # cuBLAS reads this when it starts; grads_of's deterministic mode
+    # needs it
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     log(device_line())
     dev = torch.device("cuda", 0)
     from achelous_tpu_torch.kernels import build
@@ -1054,6 +1512,23 @@ def main():
         del model, fn
     for name, count in train_phases(dev).items():
         launches[name] += count
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    with phase("T4 gradients of K3"):
+        check_attention_gradients(dev)
+        check_attention4d_gradients(dev)
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32
+    torch.cuda.empty_cache()
+    with phase("T5 training EF-GDF-PN-S0 and EN-GDF-PN2-S0"):
+        for name, count in train_paths(dev).items():
+            launches[name] += count
+    torch.cuda.empty_cache()
+    with phase("F1 fit on a WaterScenes tree"):
+        for name, count in fit_on_the_card(dev).items():
+            launches[name] += count
     rows = []
     for name, source, replaces in (
             ("fused_radarconv", "achelous_tpu_torch/csrc/deform.cu",

@@ -16,11 +16,14 @@ at the shapes the serving paths give them (320x320, batch 1):
                            batch 1 and 3, with ties, masks, no valid point;
                            both cross-warp reductions; the thread limits)
 
-K1's and K2's autograd Functions (kernel forward, the plain version's
-autograd backward) are held against torch.autograd of the plain versions
-over bands 0-6 (and None for K2), ragged maps and both dtypes, and a
-grad-enabled DeformableConv2d must give every parameter a gradient.  An
-eval after a bf16 training step must run on the new weights.
+K1's, K2's and K3's autograd Functions (kernel forward, the plain
+version's autograd backward) are held against torch.autograd of the plain
+versions over bands 0-6 (and None for K2), ragged maps, K3's training and
+serving shapes and both dtypes, and a grad-enabled DeformableConv2d and an
+EF model's Attention4Ds must give every parameter a gradient.  An eval
+after a bf16 training step must run on the new weights.  A PointNet++
+training step launches K4 on inputs with no graph.  The radar splat on the
+card equals the CPU's.
 
 Every test is marked `cuda` and skips where no GPU is visible.  This file
 imports no JAX, so it also runs on a machine without it:
@@ -599,3 +602,103 @@ def test_k3_k4_reject_what_they_do_not_take(cuda_device):
         hopper_pointops.farthest_point_sample(
             torch.zeros(1, 64, 3, device=cuda_device), 8,
             torch.ones(1, 64, device=cuda_device))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n", [(32, 100), (1, 100), (2, 16)])
+def test_k3_function_gradients_match_plain_autograd(cuda_device, b, n,
+                                                    dtype):
+    """FusedBiasAttention at EF's training shape (batch 32) and the serving
+    ones: the output and all eight inputs' gradients."""
+    rng = np.random.RandomState(b + n)
+    args = k3_args(rng, b, 8, n, 32, 128, cuda_device, dtype)
+    g = torch.randn(b, 8, n, 128, device=cuda_device).to(dtype)
+
+    def grads(fn):
+        ins = [a.detach().clone().requires_grad_(True) for a in args]
+        out = fn(*ins, 32 ** -0.5)
+        return out, torch.autograd.grad(out, ins, g)
+    before = hopper_attention.fused_bias_attention.launches
+    got_out, got = grads(hopper_attention.fused_bias_attention)
+    assert hopper_attention.fused_bias_attention.launches == before + 1
+    want_out, want = grads(attention.reference_bias_attention)
+    torch.testing.assert_close(got_out.float(), want_out.float(),
+                               **TOL[dtype])
+    for i, (a, w) in enumerate(zip(got, want)):
+        torch.testing.assert_close(a.float(), w.float(), **TOL[dtype],
+                                   msg=f"grad {i}")
+
+
+def test_ef_attention_params_all_get_gradients(cuda_device):
+    """EF-GDF-PN-S0 at 64^2, bf16 compute on float32 parameters: one
+    backward through 4 K3 launches gives every parameter of every
+    Attention4D a gradient, nonzero for those it reaches only through K3
+    (`chip_smoke.K3_GRADIENT`).  Before K3's Function, the
+    q and k conv-BNs, the bias tables and both head mixes got none."""
+    from achelous_tpu_torch.core.config import AchelousConfig
+    from achelous_tpu_torch.models.achelous import create_model, forward_compute
+    from chip_smoke import K3_GRADIENT
+    cfg = AchelousConfig(resolution=64, backbone="ef", dtype=torch.bfloat16)
+    model = create_model(cfg, cuda_device, train=True)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.endswith(("attention_biases", "layer_scale_1")):
+                p.normal_(0, 0.1)
+    x = torch.rand(2, 3, 64, 64, device=cuda_device)
+    before = hopper_attention.fused_bias_attention.launches
+    det, sem, lane, pc = forward_compute(model, x, x,
+                                         torch.rand(2, 512, 5,
+                                                    device=cuda_device))
+    assert hopper_attention.fused_bias_attention.launches == before + 4
+    sum(o.float().square().mean() for o in det).backward()
+    params = {n: p for n, p in model.named_parameters()
+              if ".token_mixer." in n}
+    assert len(params) == 2 * 25 + 2 * 29
+    for n, p in params.items():
+        assert p.grad is not None, n
+        if n.endswith(K3_GRADIENT):
+            assert bool(p.grad.abs().sum() > 0), n
+
+
+def test_pn2_train_step_launches_fps(cuda_device):
+    """EN-GDF-PN2-S0 at 64^2, float32 and bf16: a training step launches K4
+    4 times (its inputs carry no graph), and its metrics are finite."""
+    from achelous_tpu_torch.core.config import AchelousConfig
+    from achelous_tpu_torch.data.synthetic import synthetic_batch
+    from achelous_tpu_torch.models.achelous import create_model
+    from achelous_tpu_torch.train import train_state as tts
+    for dtype in (torch.float32, torch.bfloat16):
+        cfg = AchelousConfig(resolution=64, pc_model="pn2", dtype=dtype)
+        tcfg = tts.TrainConfig(max_gt=8)
+        state = tts.create_train_state(
+            create_model(cfg, cuda_device, train=True), cfg, tcfg)
+        batch = synthetic_batch(cfg, 4, 8, seed=2, device=cuda_device)
+        before = hopper_pointops.farthest_point_sample.launches
+        state, m = tts.make_train_step(cfg, tcfg)(state, batch, 0.01)
+        assert hopper_pointops.farthest_point_sample.launches == before + 4
+        assert m["skipped_nonfinite"] == 0.0
+        assert all(bool(torch.isfinite(torch.as_tensor(v))) for v in
+                   m.values())
+
+
+def test_radar_splat_on_the_card_equals_the_cpu(cuda_device):
+    """splat_radar_fast's scatter-max order on the card: the same maps as
+    on the CPU, with repeated cells, points outside the frame and padding
+    rows; the exact splat too."""
+    from achelous_tpu_torch.ops.radar_splat import (splat_radar_fast,
+                                                    splat_radar_points)
+    rng = np.random.RandomState(0)
+    p = np.zeros((4, 512, 5), np.float32)
+    p[..., :3] = rng.randn(4, 512, 3)
+    p[..., 3] = rng.uniform(-100, 2000, (4, 512))
+    p[..., 4] = rng.uniform(-50, 1100, (4, 512))
+    p[:, :200, 3] = rng.choice([60.0, 61.0, 600.0], (4, 200))
+    p[:, :200, 4] = rng.choice([34.0, 300.0], (4, 200))
+    valid = torch.from_numpy(rng.rand(4, 512) > 0.1)
+    pts = torch.from_numpy(p)
+    want = splat_radar_fast(pts, valid)
+    got = splat_radar_fast(pts.to(cuda_device), valid.to(cuda_device))
+    assert torch.equal(got.cpu(), want)
+    assert torch.equal(splat_radar_points(pts[0].to(cuda_device),
+                                          valid[0].to(cuda_device)).cpu(),
+                       splat_radar_points(pts[0], valid[0]))
