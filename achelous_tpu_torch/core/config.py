@@ -1,9 +1,12 @@
 """Model configuration (counterpart of achelous_tpu/core/config.py).
 
-One width table and one frozen dataclass that every module reads.  Only the
-axes the port supports are accepted: the EdgeNeXt (`en`) and
-EfficientFormerV2 (`ef`) backbones, the `gdf` neck, and the PointNet (`pn`)
-and PointNet++ (`pn2`) point-cloud branches.
+One width table and one frozen dataclass that every module reads.  The
+JAX package's checks hold; beyond them only the axes the port supports are
+accepted: the EdgeNeXt (`en`), MobileViT (`mv`) and EfficientFormerV2
+(`ef`) backbones at S0-S2, the `gdf` and `cdf` necks with SPP or SPPF
+(`use_spp`), and the PointNet (`pn`) and PointNet++ (`pn2`) point-cloud
+branches.  The JAX package's other axes (`NOT_PORTED`) raise a ValueError
+that says so.
 """
 from __future__ import annotations
 
@@ -20,9 +23,12 @@ WIDTHS: dict[str, Tuple[int, int, int, int]] = {
     "S0": (32, 48, 96, 176),
 }
 
-BACKBONES = ("en", "ef")
-NECKS = ("gdf",)
+BACKBONES = ("en", "mv", "ef")
+NECKS = ("gdf", "cdf")
 PC_MODELS = ("pn", "pn2")
+# the JAX package's values that the port does not build yet
+NOT_PORTED = {"backbone": ("ev", "rv", "pf", "mo", "fv"), "neck": ("rdf",),
+              "phi": ("L",)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -41,6 +47,7 @@ class AchelousConfig:
     neck: str = "gdf"
     pc_model: str = "pn"
     nano_head: bool = True
+    use_spp: bool = True      # SPP, else SPPF (serial 5x5 max-pools)
 
     # inputs
     resolution: int = 320
@@ -57,13 +64,15 @@ class AchelousConfig:
     deform_band: Optional[int] = 4
 
     def __post_init__(self):
-        if self.phi not in ("S0", "S1", "S2"):
-            raise ValueError(f"phi must be one of S0/S1/S2, got {self.phi!r}")
-        if self.backbone not in BACKBONES:
-            raise ValueError(f"backbone must be one of {BACKBONES}, got "
-                             f"{self.backbone!r}")
-        if self.neck not in NECKS:
-            raise ValueError(f"neck must be one of {NECKS}, got {self.neck!r}")
+        for axis, ported in (("phi", ("S0", "S1", "S2")),
+                             ("backbone", BACKBONES), ("neck", NECKS)):
+            value = getattr(self, axis)
+            if value in NOT_PORTED[axis]:
+                raise ValueError(f"{axis} {value!r} is not ported to "
+                                 f"PyTorch yet (ported: {ported})")
+            if value not in ported:
+                raise ValueError(f"{axis} must be one of {ported}, got "
+                                 f"{value!r}")
         if self.pc_model not in PC_MODELS:
             raise ValueError(f"pc_model must be one of {PC_MODELS}, got "
                              f"{self.pc_model!r}")

@@ -23,6 +23,31 @@ CSV_COLUMNS = ("range", "doppler", "rcs", "u", "v", "x", "y", "z",
                "comp_velocity", "label")
 
 
+def write_radar_csv(path: str, points: int,
+                    rng: np.random.RandomState) -> str:
+    """One frame's radar CSV of `points` rows in CSV_COLUMNS, (u, v) on
+    WaterScenes' 1920x1080 camera: the first four points in one cell, one
+    point left of the frame and one below it."""
+    u = rng.uniform(0, 1920, points)
+    v = rng.uniform(0, 1080, points)
+    u[:4], v[:4] = 600.5, 300.2                    # one cell, four times
+    u[4], v[5] = -12.0, 1200.0                     # outside the frame
+    table = np.stack([rng.uniform(1, 80, points),
+                      rng.uniform(-5, 5, points),
+                      rng.uniform(-10, 20, points), u, v,
+                      rng.uniform(1, 80, points),
+                      rng.uniform(-20, 20, points),
+                      rng.uniform(-1, 3, points),
+                      rng.uniform(-5, 5, points),
+                      rng.randint(0, 8, points)], 1)
+    with open(path, "w") as f:
+        f.write(",".join(CSV_COLUMNS) + "\n")
+        for row in table:
+            f.write(",".join(repr(float(x)) for x in row[:-1])
+                    + f",{int(row[-1])}\n")
+    return path
+
+
 def write_tree(root: str, frames: int = 6, size=(128, 72), points: int = 48,
                val: int = 2, seed: int = 0) -> str:
     """Write `frames` frames of `size` (width, height) under `root`: the
@@ -59,23 +84,8 @@ def write_tree(root: str, frames: int = 6, size=(128, 72), points: int = 48,
             boxes.append(f"{x1},{y1},{x2},{y2},{rng.randint(0, 7)}")
         lines.append(" ".join([path] + boxes))
 
-        u = rng.uniform(0, 1920, points)
-        v = rng.uniform(0, 1080, points)
-        u[:4], v[:4] = 600.5, 300.2                    # one cell, four times
-        u[4], v[5] = -12.0, 1200.0                     # outside the frame
-        table = np.stack([rng.uniform(1, 80, points),
-                          rng.uniform(-5, 5, points),
-                          rng.uniform(-10, 20, points), u, v,
-                          rng.uniform(1, 80, points),
-                          rng.uniform(-20, 20, points),
-                          rng.uniform(-1, 3, points),
-                          rng.uniform(-5, 5, points),
-                          rng.randint(0, 8, points)], 1)
-        with open(os.path.join(dirs["radar"], name + ".csv"), "w") as f:
-            f.write(",".join(CSV_COLUMNS) + "\n")
-            for row in table:
-                f.write(",".join(repr(float(x)) for x in row[:-1])
-                        + f",{int(row[-1])}\n")
+        write_radar_csv(os.path.join(dirs["radar"], name + ".csv"), points,
+                        rng)
     with open(os.path.join(root, "train.txt"), "w") as f:
         f.write("\n".join(lines[:frames - val]) + "\n")
     with open(os.path.join(root, "val.txt"), "w") as f:

@@ -35,6 +35,31 @@ PC_FEATURES = ["x", "y", "z", "comp_velocity", "rcs"]   # achelous.py:92
 SPLAT_FEATURES = ["range", "doppler", "rcs", "u", "v"]  # notebook cell 4
 
 
+def preprocess_image(img: np.ndarray) -> np.ndarray:
+    """/255 + ImageNet mean/std (reference utils/utils.py:44-48)."""
+    x = img.astype(np.float32) / 255.0
+    return (x - native.IMAGENET_MEAN) / native.IMAGENET_STD
+
+
+def letterbox(image, input_shape, fill=(128, 128, 128), resample=None):
+    """Aspect-preserving Pillow resize (bicubic unless `resample`) with
+    gray bars: (new image, scale, (dx, dy)), as the reference's
+    utils/dataloader.py:184-197 and the JAX package's predictor do it."""
+    from PIL import Image
+    iw, ih = image.size
+    h, w = input_shape
+    scale = min(w / iw, h / ih)
+    nw, nh = int(iw * scale), int(ih * scale)
+    # Image.NEAREST is 0: `resample or BICUBIC` would resample masks bicubic
+    resized = image.resize((nw, nh),
+                           Image.BICUBIC if resample is None else resample)
+    canvas = Image.new(image.mode if image.mode != "1" else "L",
+                       (w, h), fill if image.mode == "RGB" else 0)
+    dx, dy = (w - nw) // 2, (h - nh) // 2
+    canvas.paste(resized, (dx, dy))
+    return canvas, scale, (dx, dy)
+
+
 def load_radar_csv(path: str, columns: Sequence[str]) -> np.ndarray:
     """The named columns of a radar CSV as float32 [N, len(columns)]; no
     rows where the header lacks one of them."""

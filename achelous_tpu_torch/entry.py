@@ -6,7 +6,9 @@ repository's __graft_entry__.py).
 
 At 320x320, bf16, batch 1: the 5-task forward, then decode + class-aware
 NMS.  The default is EN-GDF-PN-S0, the repository's flagship; `backbone`
-"ef" gives EF-GDF-PN-S0 and `pc_model` "pn2" EN-GDF-PN2-S0.  The radar
+"ef" gives EF-GDF-PN-S0 and `pc_model` "pn2" EN-GDF-PN2-S0; `phi`, `neck`
+and `use_spp` give the other configurations of BENCH_SWEEP.json
+(EN-GDF-PN-S1/S2, SPPF, MV-GDF-PN-S1, EN-CDF-PN2-S2).  The radar
 map is channels-first [1,3,320,320], the image [1,3,320,320] and the
 points [1,512,5]; the example inputs are zeros.  Everything runs on the
 GPU unless the caller passes the CPU as `device`.
@@ -29,10 +31,11 @@ NMS_THRES = 0.35
 
 def serving_config(dtype: torch.dtype = torch.bfloat16,
                    resolution: int = 320, backbone: str = "en",
-                   pc_model: str = "pn") -> AchelousConfig:
-    return AchelousConfig(phi="S0", backbone=backbone, neck="gdf",
+                   pc_model: str = "pn", phi: str = "S0", neck: str = "gdf",
+                   use_spp: bool = True) -> AchelousConfig:
+    return AchelousConfig(phi=phi, backbone=backbone, neck=neck,
                           pc_model=pc_model, resolution=resolution,
-                          dtype=dtype)
+                          dtype=dtype, use_spp=use_spp)
 
 
 def make_fn(model, cfg: AchelousConfig):
@@ -89,11 +92,13 @@ def perturb_attention(model, seed: int = 4):
 
 def entry(device: torch.device | str = torch.device("cuda"),
           generator: Optional[torch.Generator] = None,
-          backbone: str = "en", pc_model: str = "pn"):
-    """(fn, example_args) for {backbone}-GDF-{pc_model}-S0 at 320^2, bf16,
-    batch 1, on `device`, with parameters drawn from the CPU `generator`
-    (seed 0 when None).  Raises where the device is a GPU and none is
-    visible."""
-    cfg = serving_config(backbone=backbone, pc_model=pc_model)
+          backbone: str = "en", pc_model: str = "pn", phi: str = "S0",
+          neck: str = "gdf", use_spp: bool = True):
+    """(fn, example_args) for {backbone}-{neck}-{pc_model}-{phi} at 320^2,
+    bf16, batch 1, on `device`, with parameters drawn from the CPU
+    `generator` (seed 0 when None).  Raises where the device is a GPU and
+    none is visible."""
+    cfg = serving_config(backbone=backbone, pc_model=pc_model, phi=phi,
+                         neck=neck, use_spp=use_spp)
     model = create_model(cfg, device, generator)
     return make_fn(model, cfg), example_inputs(cfg, 1, device)

@@ -10,8 +10,9 @@ The module tree is the reference's (nets/Achelous.py, IREncoder.py):
 `image_radar_encoder` holds the neck (`fpn`, which holds the backbone), the
 radar encoder and the per-scale fusion; `det_head` and `pc_seg_model` sit
 beside it.  So `state_dict()` keys are the reference torch keys.  The
-backbone is EdgeNeXt (`en`) or EfficientFormerV2 (`ef`); the point-cloud
-branch PointNet (`pn`) or PointNet++ (`pn2`).
+backbone is EdgeNeXt (`en`), MobileViT (`mv`) or EfficientFormerV2 (`ef`);
+the neck's fuse and decoder blocks ghost (`gdf`) or CSP (`cdf`) ones; the
+point-cloud branch PointNet (`pn`) or PointNet++ (`pn2`).
 """
 from __future__ import annotations
 
@@ -26,6 +27,7 @@ from achelous_tpu_torch.core.init import init_params
 from achelous_tpu_torch.models.edgenext import EDGENEXT_VARIANTS
 from achelous_tpu_torch.models.efficientformer import EfficientFormerV2
 from achelous_tpu_torch.models.heads import DecoupleHead
+from achelous_tpu_torch.models.mobilevit import mobilevit
 from achelous_tpu_torch.models.necks import DualFPN
 from achelous_tpu_torch.models.pointnet import PointNetSeg
 from achelous_tpu_torch.models.pointnet2 import PointNet2Seg
@@ -37,10 +39,12 @@ STAGES = (3, 4, 5)
 
 
 def make_backbone(cfg: AchelousConfig) -> nn.Module:
-    """The vision backbone named by `cfg.backbone` (`en` or `ef`)."""
+    """The vision backbone named by `cfg.backbone` (`en`, `mv` or `ef`)."""
     if cfg.backbone == "ef":
         return EfficientFormerV2(cfg.phi, cfg.resolution,
                                  in_chans=cfg.image_channels)
+    if cfg.backbone == "mv":
+        return mobilevit(cfg.phi, in_chans=cfg.image_channels)
     return EDGENEXT_VARIANTS[cfg.phi](in_chans=cfg.image_channels)
 
 
@@ -73,7 +77,8 @@ class IREncoder(IRFusion):
 
     def __init__(self, cfg: AchelousConfig):
         super().__init__(cfg.phi)
-        self.fpn = DualFPN(cfg.num_seg, cfg.phi, backbone=make_backbone(cfg))
+        self.fpn = DualFPN(cfg.num_seg, cfg.phi, backbone=make_backbone(cfg),
+                           family=cfg.neck, use_spp=cfg.use_spp)
         self.radar_encoder = RCNet(cfg.phi, band=cfg.deform_band,
                                    in_channels=cfg.radar_channels)
 

@@ -1,17 +1,22 @@
-"""Ghost Dual-FPN neck with two segmentation decoders, NCHW (counterpart of
-achelous_tpu/models/necks.py, `gdf` family).
+"""Dual-FPN neck with two segmentation decoders, NCHW (counterpart of
+achelous_tpu/models/necks.py, the `gdf` and `cdf` families).
 
 As in the reference (neck/ghostdualfpn.py), the neck owns the vision
 backbone (`backbone`), so the keys of a reference state dict name its
 parameters; `forward_feats` runs the neck alone on backbone features.
 
 Topology:
-  s32 -> SPP -> fpn5
-  fpn5 -up-> cat(s16) -> ghost bottleneck -> fpn4
-  fpn4 -up-> cat(s8)  -> ghost bottleneck -> fpn3
+  s32 -> SPP (SPPF without `use_spp`) -> fpn5
+  fpn5 -up-> cat(s16) -> fuse -> fpn4
+  fpn4 -up-> cat(s8)  -> fuse -> fpn3
   fpn3 -> ShuffleAttention x2 -> two decoders, each 3x (1x1 + bilinear 2x
-  + ghost module) + head -> seg logits at input resolution
+  + block) + head block -> seg logits at input resolution
   det feats = (fpn5 + s32, fpn4 + s16, fpn3 + s8)
+
+The fuse is a ghost bottleneck (`gdf`) or a CSP layer (`cdf`), the
+decoder block a ghost module or a CSP bottleneck.  The reference's CSP
+neck keeps the ghost neck's attribute names (`ghost_5_to_4`,
+`se_seg_ghost_3_to_2`, ...), and so does the port.
 """
 from __future__ import annotations
 
@@ -21,23 +26,37 @@ import torch
 from torch import nn
 
 from achelous_tpu_torch.core.config import WIDTHS
+from achelous_tpu_torch.ops.blocks import Bottleneck, CSPLayer
 from achelous_tpu_torch.ops.primitives import (GhostBottleneck, GhostModule,
-                                               ShuffleAttention, SPP, Upsample)
+                                               ShuffleAttention, SPP, SPPF,
+                                               Upsample)
 
 HOPS = ("3_to_2", "2_to_1", "1_to_0")
 
 
 class DualFPN(nn.Module):
     def __init__(self, num_seg: int, phi: str = "S0",
-                 backbone: nn.Module | None = None):
+                 backbone: nn.Module | None = None, family: str = "gdf",
+                 use_spp: bool = True):
         super().__init__()
+        if family not in ("gdf", "cdf"):
+            raise ValueError(f"neck family must be gdf or cdf, got {family!r}")
         w = WIDTHS[phi]
+        ghost = family == "gdf"
+
+        def fuse(c):                      # 2c -> c after upsample + concat
+            return (GhostBottleneck(2 * c, 2 * c, c) if ghost
+                    else CSPLayer(2 * c, c))
+
+        def block(cin, cout):
+            return GhostModule(cin, cout) if ghost else Bottleneck(cin, cout)
+
         self.backbone = backbone
-        self.spp = SPP(w[3], w[3])
+        self.spp = (SPP if use_spp else SPPF)(w[3], w[3])
         self.upsample_5_to_4 = Upsample(w[3], w[2])
-        self.ghost_5_to_4 = GhostBottleneck(2 * w[2], 2 * w[2], w[2])
+        self.ghost_5_to_4 = fuse(w[2])
         self.upsample_4_to_3 = Upsample(w[2], w[1])
-        self.ghost_4_to_3 = GhostBottleneck(2 * w[1], 2 * w[1], w[1])
+        self.ghost_4_to_3 = fuse(w[1])
         self.stage_3_lane_seg = ShuffleAttention(w[1])
         self.stage_3_semantic_seg = ShuffleAttention(w[1])
         # decoder channel plan w1 -> w1 -> w0 -> w0, then the class head
@@ -45,8 +64,8 @@ class DualFPN(nn.Module):
         for prefix, classes in (("lane_seg", 2), ("se_seg", num_seg)):
             for hop, (cin, cout) in zip(HOPS, plan):
                 setattr(self, f"{prefix}_{hop}", Upsample(cin, cout))
-                setattr(self, f"{prefix}_ghost_{hop}", GhostModule(cout, cout))
-            setattr(self, f"{prefix}_head", GhostModule(w[0], classes))
+                setattr(self, f"{prefix}_ghost_{hop}", block(cout, cout))
+            setattr(self, f"{prefix}_head", block(w[0], classes))
 
     def _decoder(self, x, prefix: str):
         for hop in HOPS:

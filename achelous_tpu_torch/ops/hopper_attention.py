@@ -6,7 +6,10 @@ achelous_tpu/ops/pallas_attention.py; source in csrc/attention.cu).
 
 A tensor on the CPU goes to the plain PyTorch version in ops/attention.py.
 A CUDA tensor goes to the kernel or the call raises: nothing falls back.
-The wrapper counts its kernel launches in its `launches` attribute.
+The wrapper counts its kernel launches in its `launches` attribute.  The
+launch is the custom operator `achelous::fused_bias_attention`, which
+`torch.export` keeps as one node (as ops/hopper_deform.py does for K1 and
+K2).
 
 Where a gradient is asked for, the wrapper is a `torch.autograd.Function`
 (`FusedBiasAttention`) built as K1's and K2's are (ops/hopper_deform.py):
@@ -30,7 +33,8 @@ import torch
 
 from achelous_tpu_torch.kernels import build
 from achelous_tpu_torch.ops.attention import reference_bias_attention
-from achelous_tpu_torch.ops.hopper_deform import pullback, wants_grad
+from achelous_tpu_torch.ops.hopper_deform import (on_cuda, pullback,
+                                                  wants_grad)
 
 MAX_HEADS = 8         # the head mixes keep one value per head in registers
 MAX_KEY_DIM = 64      # every head's keys staged in shared memory, 16 at least
@@ -76,10 +80,19 @@ def _attention_forward(q, k, v, bias, th1_w, th1_b, th2_w, th2_b, scale):
     args = (q, k, v, bias, th1_w, th1_b, th2_w, th2_b)
     if q.device.type == "cpu":
         return reference_bias_attention(*args, scale)
+    on_cuda("fused_bias_attention", q)
+    return torch.ops.achelous.fused_bias_attention(*args, scale)
+
+
+@torch.library.custom_op("achelous::fused_bias_attention", mutates_args=())
+def _attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  bias: torch.Tensor, th1_w: torch.Tensor,
+                  th1_b: torch.Tensor, th2_w: torch.Tensor,
+                  th2_b: torch.Tensor, scale: float) -> torch.Tensor:
+    """K3's checks and launch, as an operator."""
+    args = (q, k, v, bias, th1_w, th1_b, th2_w, th2_b)
     name = "fused_bias_attention"
-    if q.device.type != "cuda":
-        raise ValueError(f"{name}: tensors must be on the CPU or a CUDA "
-                         f"device, got {q.device}")
+    on_cuda(name, q)
     if q.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: dtype {q.dtype} not supported (float32 or "
                         f"bfloat16)")
@@ -122,6 +135,11 @@ def _attention_forward(q, k, v, bias, th1_w, th1_b, th2_w, th2_b, scale):
     build.raise_on(name, err)
     fused_bias_attention.launches += 1
     return out
+
+
+@_attention_op.register_fake
+def _(q, k, v, bias, th1_w, th1_b, th2_w, th2_b, scale):
+    return q.new_empty((*q.shape[:3], v.shape[-1]))
 
 
 fused_bias_attention.launches = 0

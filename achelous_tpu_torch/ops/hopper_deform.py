@@ -8,6 +8,14 @@ A tensor on the CPU goes to the plain PyTorch version in ops/deform.py.  A
 CUDA tensor goes to the kernel or the call raises: nothing falls back.
 Each wrapper counts its kernel launches in its `launches` attribute.
 
+On a CUDA tensor each kernel is reached through a custom operator,
+`achelous::fused_radarconv` and `achelous::deform_samples`
+(`torch.library.custom_op`), whose implementation is the ctypes launch and
+whose fake implementation gives the output's shape and dtype.  So
+`torch.export` traces a kernel as one node of its graph, and a program
+loaded from the saved export launches the kernel (and counts it) as the
+eager path does.
+
 Where a gradient is asked for, each wrapper is a `torch.autograd.Function`
 (`FusedRadarConv`, `DeformSamples`) built as the JAX package's
 `custom_vjp`s (`_fused_fwd`/`_fused_bwd`, `_cfio_fwd`/`_cfio_bwd`): the
@@ -44,10 +52,16 @@ SAMPLES_GROUPS = (8, 4, 2, 1)
 SAMPLES_BLOCKS_PER_SM = 2
 
 
-def _check_cuda(name: str, x: torch.Tensor, *others: torch.Tensor):
+def on_cuda(name: str, x: torch.Tensor):
+    """Raise unless x is on a CUDA device (a meta tensor would reach an
+    operator's fake implementation and run nothing)."""
     if x.device.type != "cuda":
         raise ValueError(f"{name}: tensors must be on the CPU or a CUDA "
                          f"device, got {x.device}")
+
+
+def _check_cuda(name: str, x: torch.Tensor, *others: torch.Tensor):
+    on_cuda(name, x)
     if x.dtype not in _DTYPE_CODE:
         raise TypeError(f"{name}: dtype {x.dtype} not supported "
                         f"(float32 or bfloat16)")
@@ -158,6 +172,14 @@ def fused_radarconv(x: torch.Tensor, wconv: torch.Tensor,
 def _fused_forward(x, wconv, bconv, wproj, band):
     if x.device.type == "cpu":
         return _plain_radarconv(band)(x, wconv, bconv, wproj)
+    on_cuda("fused_radarconv", x)
+    return torch.ops.achelous.fused_radarconv(x, wconv, bconv, wproj, band)
+
+
+@torch.library.custom_op("achelous::fused_radarconv", mutates_args=())
+def _fused_op(x: torch.Tensor, wconv: torch.Tensor, bconv: torch.Tensor,
+              wproj: torch.Tensor, band: int) -> torch.Tensor:
+    """K1's checks and launch, as an operator."""
     _check_cuda("fused_radarconv", x)
     if x.dim() != 4:
         raise ValueError(f"fused_radarconv: x must be [B,C,H,W], got "
@@ -193,6 +215,11 @@ def _fused_forward(x, wconv, bconv, wproj, band):
     build.raise_on("fused_radarconv", err)
     fused_radarconv.launches += 1
     return out
+
+
+@_fused_op.register_fake
+def _(x, wconv, bconv, wproj, band):
+    return x.new_empty((x.shape[0], wproj.shape[-1], x.shape[2], x.shape[3]))
 
 
 class SamplesPlan(NamedTuple):
@@ -257,7 +284,22 @@ def _samples_forward(x, offset, mask, band):
     if x.device.type == "cpu":
         from achelous_tpu_torch.ops.deform import banded_deform_samples
         return banded_deform_samples(x, offset, mask, band)
+    on_cuda("deform_samples", x)
+    return torch.ops.achelous.deform_samples(x, offset, mask, band)
+
+
+@torch.library.custom_op("achelous::deform_samples", mutates_args=())
+def _samples_op(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,
+                band: Optional[int]) -> torch.Tensor:
+    """K2's launch on the plan `deform_samples_plan` picks, as an
+    operator."""
     return launch_samples(x, offset, mask, band, None)
+
+
+@_samples_op.register_fake
+def _(x, offset, mask, band):
+    return x.new_empty((x.shape[0], TAPS * x.shape[1], x.shape[2],
+                        x.shape[3]))
 
 
 def launch_samples(x: torch.Tensor, offset: torch.Tensor, mask: torch.Tensor,

@@ -7,6 +7,9 @@ achelous_tpu/ops/pallas_pointops.py; source in csrc/pointops.cu).
 A tensor on the CPU goes to the plain PyTorch version in ops/pointops.py.
 A CUDA tensor goes to the kernel or the call raises: nothing falls back.
 The kernel's launches are counted in `farthest_point_sample.launches`.
+The launch is the custom operator `achelous::farthest_point_sample`, which
+`torch.export` keeps as one node (as ops/hopper_deform.py does for K1 and
+K2).
 
 The kernel takes float32 xyz (the PointNet++ branch keeps xyz in float32
 whatever the compute dtype) and returns int64 indices with exactly the
@@ -20,6 +23,7 @@ from typing import Optional, Tuple
 import torch
 
 from achelous_tpu_torch.kernels import build
+from achelous_tpu_torch.ops.hopper_deform import on_cuda
 
 # a float4 copy of one batch element's points lives in shared memory: 16
 # bytes a point, under the 227 KB a block can opt into
@@ -60,7 +64,20 @@ def farthest_point_sample(xyz: torch.Tensor, npoint: int,
         from achelous_tpu_torch.ops.pointops import \
             farthest_point_sample as plain
         return plain(xyz, npoint, valid)
+    on_cuda("farthest_point_sample", xyz)
+    return torch.ops.achelous.farthest_point_sample(xyz, npoint, valid)
+
+
+@torch.library.custom_op("achelous::farthest_point_sample", mutates_args=())
+def _fps_op(xyz: torch.Tensor, npoint: int,
+            valid: Optional[torch.Tensor]) -> torch.Tensor:
+    """K4's launch on the plan `fps_plan` picks, as an operator."""
     return launch_fps(xyz, npoint, valid, None)
+
+
+@_fps_op.register_fake
+def _(xyz, npoint, valid):
+    return xyz.new_empty((xyz.shape[0], npoint), dtype=torch.int64)
 
 
 def launch_fps(xyz: torch.Tensor, npoint: int,
@@ -72,9 +89,7 @@ def launch_fps(xyz: torch.Tensor, npoint: int,
     warps) rather than redux.sync; None takes it up to 4 warps, where
     kernels/sweep.py found it faster on the H100.
     `kernels/sweep.py` and the CUDA tests pass others."""
-    if xyz.device.type != "cuda":
-        raise ValueError(f"farthest_point_sample: tensors must be on the CPU "
-                         f"or a CUDA device, got {xyz.device}")
+    on_cuda("farthest_point_sample", xyz)
     if xyz.dtype != torch.float32:
         raise TypeError(f"farthest_point_sample: xyz must be float32, got "
                         f"{xyz.dtype}")

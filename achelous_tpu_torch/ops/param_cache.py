@@ -18,7 +18,9 @@ never hits the cache, and it holds one stale set of tensors at most.
 Where a gradient is asked for, the tensors are built afresh on every call
 and never cached: a cached tensor made under `torch.inference_mode` cannot
 enter a graph that needs a gradient, and a cached one made under
-`no_grad` would cut the graph.
+`no_grad` would cut the graph.  Under `torch.export` they are built afresh
+too, inside the traced graph: the parameters are fake tensors there, with
+no storage to key on, and a cached fake would outlive its trace.
 """
 from __future__ import annotations
 
@@ -41,6 +43,8 @@ class ParamCache:
         """`build()`, or its cached result while `tensors` are the very
         objects of the last call, each as it was, and `extra` (e.g. the
         compute dtype) is unchanged."""
+        if torch.compiler.is_exporting():
+            return build()
         if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
             return build()
         if any(t.is_inference() for t in tensors):

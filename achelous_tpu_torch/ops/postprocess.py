@@ -15,6 +15,11 @@ achelous_tpu/ops/postprocess.py), with the JAX semantics kept exactly:
 The JAX package's `nms_single` is the per-image body that it vmaps; here
 `non_max_suppression` writes the batch dimension out instead.  None of
 this was a Pallas kernel in JAX; it stays plain PyTorch.
+
+The suppression fixpoint ends early once an iteration changes nothing.
+Eagerly that is a Python `if` on the data; under `torch.export`, which
+cannot trace a branch on data, the same condition drives a `while_loop`
+operator, so an exported program iterates exactly as often.
 """
 from __future__ import annotations
 
@@ -79,6 +84,40 @@ def _pairwise_iou(boxes: torch.Tensor) -> torch.Tensor:
     return inter / (area[:, :, None] + area[:, None, :] - inter + 1e-16)
 
 
+def _suppress(overlap: torch.Tensor, live: torch.Tensor,
+              keep: torch.Tensor) -> torch.Tensor:
+    """K_{n+1} = {i live : no j in K_n suppresses i}."""
+    return live & ~(overlap & keep[:, None, :]).any(dim=2)
+
+
+def _fixpoint(overlap: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+    keep = live
+    for _ in range(live.shape[1]):
+        new_keep = _suppress(overlap, live, keep)
+        if torch.equal(new_keep, keep):
+            break
+        keep = new_keep
+    return keep
+
+
+def _fixpoint_exported(overlap: torch.Tensor,
+                       live: torch.Tensor) -> torch.Tensor:
+    """`_fixpoint` as a traceable loop: iterate while the last step
+    changed `keep` (the fixpoint is reached within the longest suppression
+    chain, at most the candidate count)."""
+    from torch._higher_order_ops.while_loop import while_loop
+
+    def changed(keep, moved):
+        return moved.clone()            # the operator forbids aliasing
+
+    def step(keep, moved):
+        new_keep = _suppress(overlap, live, keep)
+        return new_keep, (new_keep != keep).any()
+
+    moved = torch.ones((), dtype=torch.bool, device=live.device)
+    return while_loop(changed, step, (live, moved))[0]
+
+
 def non_max_suppression(decoded: torch.Tensor, num_classes: int,
                         conf_thres: float = 0.5, nms_thres: float = 0.4,
                         max_det: int = 100,
@@ -114,14 +153,11 @@ def non_max_suppression(decoded: torch.Tensor, num_classes: int,
                & (ccls[:, :, None] == ccls[:, None, :])
                & (rank[None, :] < rank[:, None])
                & cand_live[:, None, :] & cand_live[:, :, None])
-    # K_{n+1} = {i live : no j in K_n suppresses i}; the fixpoint is the
-    # greedy solution, reached within the longest suppression chain
-    keep = cand_live
-    for _ in range(p):
-        new_keep = cand_live & ~(overlap & keep[:, None, :]).any(dim=2)
-        if torch.equal(new_keep, keep):
-            break
-        keep = new_keep
+    # iterate `_suppress` to its fixpoint: the greedy solution, reached
+    # within the longest suppression chain
+    keep = (_fixpoint_exported(overlap, cand_live)
+            if torch.compiler.is_exporting()
+            else _fixpoint(overlap, cand_live))
 
     order = torch.sort((~keep).to(torch.uint8), dim=1, stable=True)[1]
     order = order[:, :max_det]

@@ -8,7 +8,7 @@ name these parameters:
   - YoloConv        neck/spp.py Conv    (`conv`, `bn`)
   - GhostModule     ghost_conv.py       (`primary_conv.{0,1}`, `cheap_operation.{0,1}`)
   - GhostBottleneck ghost_conv.py       (`ghost1`, `ghost2`, `shortcut.{0..3}`)
-  - SPP             neck/spp.py         (`cv1`, `cv2`)
+  - SPP, SPPF       neck/spp.py         (`cv1`, `cv2`)
   - Upsample        ghostdualfpn.py     (`upsample.0`)
   - ECA             eca.py              (`conv`)
   - ShuffleAttention shuffle_attention.py (`cweight` ... `gn`)
@@ -155,6 +155,25 @@ class SPP(nn.Module):
         x = self.cv1(x)
         return self.cv2(torch.cat([x] + [max_pool_same(x, k)
                                          for k in self.POOLS], dim=1))
+
+
+class SPPF(nn.Module):
+    """1x1 reduce, three serial 5x5 max-pools, concat of the four, 1x1
+    expand; the same parameters as SPP."""
+
+    K = 5
+
+    def __init__(self, cin: int, c2: int):
+        super().__init__()
+        c_ = cin // 2
+        self.cv1 = YoloConv(cin, c_)
+        self.cv2 = YoloConv(c_ * 4, c2)
+
+    def forward(self, x):
+        outs = [self.cv1(x)]
+        for _ in range(3):
+            outs.append(max_pool_same(outs[-1], self.K))
+        return self.cv2(torch.cat(outs, dim=1))
 
 
 class _Upsample2x(nn.Module):

@@ -111,7 +111,7 @@ def main(argv=None):
     parser = build_parser()
     args = parser.parse_args(argv)
     if not (args.spp and args.is_pc):
-        parser.error("the port builds the SPP neck and the point-cloud "
+        parser.error("the port trains the SPP neck and the point-cloud "
                      "branch only: --spp and --is_pc take True")
     cfg_kw = {} if args.deform_band == "auto" else \
         {"deform_band": args.deform_band}

@@ -13,7 +13,16 @@ Pure numpy: pass the flax variables as numpy arrays (or anything
 as `model.state_dict()`.
 
 The JAX package's mapping has no PointNet++ entries; `pointnet2_entries`
-supplies them in the same format.
+supplies them in the same format.  Its `with_torch_prefix` takes four
+fields an entry and so cannot carry MobileViT's stacked entries, whose
+fifth field is the layer's index on the stacking axis; `torch_prefixed`
+keeps it.
+
+`save_weights` / `load_weights` are the port's weight file: `torch.save`
+of `{"state_dict": ..., "meta": ...}` (the counterpart of the JAX
+package's msgpack with its `__achelous_meta__` stamp), read back with
+`weights_only=True`.  meta["provenance"] == "torch-transplant" marks
+weights trained with unbounded deformable offsets (predict.py).
 
 `load_train_state_from_jax` carries a whole JAX `TrainState` (params and
 batch_stats, log_vars, the EMA, the optax momentum trace or Adam moments,
@@ -73,6 +82,33 @@ def pointnet2_entries(prefix: str = "pc_seg_model.") -> list:
     out += _bn_entries(("pc_seg", "head1_bn"), prefix + "bn1")
     out += _dense_entries(("pc_seg", "head2"), prefix + "conv2", "conv1d_dense")
     return out
+
+
+def torch_prefixed(entries: Iterable, tprefix: str) -> list:
+    """`entries` with `tprefix` before every torch key, each entry's other
+    fields (a stack index too) as they are."""
+    return [(e[0], e[1], tprefix + e[2], *e[3:]) for e in entries]
+
+
+def save_weights(path: str, state_dict: Mapping, meta: Mapping | None = None
+                 ) -> str:
+    """Write `state_dict` (tensors or numpy arrays, stored on the CPU) and
+    the provenance stamp `meta` to `path`."""
+    import torch
+    sd = {k: torch.as_tensor(np.asarray(v) if not torch.is_tensor(v) else v)
+          .detach().cpu() for k, v in state_dict.items()}
+    torch.save({"state_dict": sd, "meta": dict(meta or {})}, path)
+    return path
+
+
+def load_weights(path: str) -> tuple[dict, dict]:
+    """(state_dict, meta) from a file `save_weights` wrote; meta is {} for
+    an unstamped file."""
+    import torch
+    doc = torch.load(path, map_location="cpu", weights_only=True)
+    if not isinstance(doc, dict) or "state_dict" not in doc:
+        raise ValueError(f"{path}: not a weight file of save_weights")
+    return dict(doc["state_dict"]), dict(doc.get("meta", {}))
 
 
 def _get(tree, path):

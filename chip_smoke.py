@@ -47,6 +47,28 @@ and runs the trainer's entry point:
         (Pillow writes and decodes the tree's images); K1 and K2 held
         against their plain versions on the inputs of fit's launches at
         its batch 8, in training and in evaluation
+and then the predictor, its export and the other configurations of
+BENCH_SWEEP.json (320x320, bf16, batch 1):
+
+    P1  `AchelousPredictor` for EN-GDF-PN-S0 on seeded weights (offset
+        convs drawn) written by `weights.save_weights` and read by
+        `from_weights`, on 1920x1080 frames (WaterScenes' camera) with a
+        400-point radar CSV splatted on the card or an npz map: unstamped
+        (K1 x4, K2 x4 a frame) and stamped torch-transplant (band None,
+        K2 x8); each also in float32 on the card against the CPU, TF32
+        off (prepared inputs equal, detections paired, unletterboxed
+        probabilities within 1e-4), and in bf16 within the serving gate;
+        `detect_heatmap`, the CLI's predict mode (json, masks, rendered
+        jpg) and its fps probe (50 detections, seconds/image)
+    X1  `export_program` of that predictor, reloaded with
+        `torch.export.load`: K1 x4 and K2 x4 as operator nodes of its
+        graph, launched (and counted) when it runs, its outputs against
+        the eager request function's
+    C1  EN-GDF-PN-S1, EN-GDF-PN-S2, EN-GDF-PN-S0 with SPPF, MV-GDF-PN-S1
+        and EN-CDF-PN2-S2 (K4 x4 too), each served 8 requests as the
+        paths above, every launch's inputs held against the plain
+        version, and timed
+
   K2 is also held against its plain version on the
 exact route (band None) at C = 3, 320^2, and K4 at batch 3; K2's and K4's
 launch plans are logged.  K1 is timed as its single launch on weights packed
@@ -56,8 +78,8 @@ torch.profiler.  Any failure raises; the last line of a passing run is
 
     {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": 1}}
 
-The line before it lists each kernel with its launches on the serving
-paths, its worst float32 error against the plain version, its device time
+The line before it lists each kernel with its launches on every phase's
+main path, its worst float32 error against the plain version, its device time
 and the plain version's over one frame's calls, and the least time the
 card could take for the same work.  Imports nothing of JAX.  Exits non-zero
 without a result where no GPU is visible.
@@ -163,6 +185,41 @@ PATHS = (
     ("EF-GDF-PN-S0", "ef", "pn",
      {"fused_radarconv": 4, "deform_samples": 4, "fused_bias_attention": 4}),
 )
+# C1: the other configurations of BENCH_SWEEP.json, each served like the
+# paths above: (label, entry() arguments, launches a request)
+SWEEP_LAUNCHES = {"fused_radarconv": 4, "deform_samples": 4}
+SWEEP = (
+    ("EN-GDF-PN-S1", dict(phi="S1"), SWEEP_LAUNCHES),
+    ("EN-GDF-PN-S2", dict(phi="S2"), SWEEP_LAUNCHES),
+    ("EN-GDF-PN-S0 SPPF", dict(use_spp=False), SWEEP_LAUNCHES),
+    ("MV-GDF-PN-S1", dict(backbone="mv", phi="S1"), SWEEP_LAUNCHES),
+    ("EN-CDF-PN2-S2", dict(phi="S2", neck="cdf", pc_model="pn2"),
+     dict(SWEEP_LAUNCHES, farthest_point_sample=4)),
+)
+# P1, the predictor: WaterScenes' camera frames (width, height), radar
+# points a CSV, the fps probe's detections; each frame's launches on the
+# banded route (K1 on blocks 0-3, K2 on 4-7) and at band None (K2 on all
+# eight, as torch-transplant weights are served)
+P1_FRAME = (1920, 1080)
+P1_FRAMES = 2
+P1_RADAR_POINTS = 400
+FPS_INTERVAL = 50
+P1_LAUNCHES = {"banded": {"fused_radarconv": 4, "deform_samples": 4},
+               "band None": {"deform_samples": 8}}
+# P1 card vs CPU, both float32 with TF32 off: detections equal in count
+# and class but where a score lies within P1_SCORE_EDGE of the threshold;
+# boxes within P1_BOX_REL of the frame's width (in frame pixels);
+# unletterboxed probabilities within P1_PROB_TOL.  Random weights put the
+# frame's scores in a narrow band, which the default 0.35 may cut at
+# either end (no detection, or max_det of them), so the comparison's
+# threshold is taken from the CPU's scores: in the widest gap between
+# consecutive scores of ranks P1_RANKS
+P1_RANKS = (20, 60)
+P1_SCORE_EDGE = 1e-4
+P1_BOX_REL = 1e-3
+P1_PROB_TOL = 1e-4
+# X1: the exported program's kernel nodes
+X1_NODES = {"fused_radarconv": 4, "deform_samples": 4}
 # The least time of a call: the larger of its bytes (each input read once,
 # each output written once) over the HBM rate and its operations over the
 # peak rate for the inputs' type (NVIDIA's H100 SXM data sheet at 700 W:
@@ -640,23 +697,25 @@ def check_on_path(label, records):
             for (n, d), e in sorted(worst.items(), key=str)))
 
 
-def serve_path(dev, label, backbone, pc_model, want_rose):
-    """Phase 4: serve REQUESTS requests through entry() on one path, with
-    the launch counts set to 0 just before and read just after; check the
-    outputs against float32 plain on the CPU."""
+def serve_path(dev, label, want_rose, records=None, **path):
+    """Phase 4 and C1: serve REQUESTS requests through entry(**path) on
+    one path (its config's name leads `label`), with the launch counts
+    set to 0 just before and read just after; check the outputs against
+    float32 plain on the CPU.  With `records`, the kernels' launch sites
+    keep the inputs of every launch there (`on_path_inputs`)."""
     from achelous_tpu_torch.entry import (entry, perturb_attention,
                                           perturb_deform_convs)
     from achelous_tpu_torch.models.achelous import cast_compute
 
-    fn, _ = entry(dev, torch.Generator().manual_seed(0), backbone, pc_model)
+    fn, _ = entry(dev, torch.Generator().manual_seed(0), **path)
     model, cfg = fn.model, fn.cfg
-    if cfg.name != label:
+    if cfg.name != label.split()[0]:
         raise AssertionError(f"entry built {cfg.name}, want {label}")
     perturb_deform_convs(model)
     perturb_attention(model)
     # the same (bf16) weights in float32 on the CPU: the plain versions
     ref_model = cast_compute(copy.deepcopy(model).cpu(), torch.float32)
-    pn2 = pc_model == "pn2"
+    pn2 = cfg.pc_model == "pn2"
 
     reqs = requests(cfg, REQUESTS)
     dev_reqs = [tuple(t.to(dev, cfg.dtype) for t in q) for q in reqs]
@@ -671,13 +730,15 @@ def serve_path(dev, label, backbone, pc_model, want_rose):
     for f in w.values():
         f.launches = 0
     outs = []
-    for i, q in enumerate(dev_reqs):
-        before = {n: f.launches for n, f in w.items()}
-        outs.append(fn(*q))
-        rose = {n: f.launches - before[n] for n, f in w.items()}
-        if rose != want_rose:
-            raise AssertionError(f"{label} request {i}: kernel launches "
-                                 f"{rose}, want {want_rose}")
+    with (contextlib.nullcontext() if records is None
+          else on_path_inputs(records)):
+        for i, q in enumerate(dev_reqs):
+            before = {n: f.launches for n, f in w.items()}
+            outs.append(fn(*q))
+            rose = {n: f.launches - before[n] for n, f in w.items()}
+            if rose != want_rose:
+                raise AssertionError(f"{label} request {i}: kernel launches "
+                                     f"{rose}, want {want_rose}")
     torch.cuda.synchronize()
     counts = {n: f.launches for n, f in w.items()}
     log(f"main path {label}: launches over {REQUESTS} requests {counts}; "
@@ -1490,6 +1551,343 @@ def fit_on_the_card(dev):
     return counts
 
 
+# ---------------------------------------------------------------------------
+# P1 the predictor, X1 its export, C1 the sweep configurations
+# ---------------------------------------------------------------------------
+
+
+def counted(fn):
+    """(fn(), each kernel's launches in it): the counts set to 0 just
+    before and read just after."""
+    w = wrappers()
+    for f in w.values():
+        f.launches = 0
+    out = fn()
+    torch.cuda.synchronize()
+    return out, {n: f.launches for n, f in w.items() if f.launches}
+
+
+def add_counts(total, counts):
+    for n, c in counts.items():
+        total[n] = total.get(n, 0) + c
+
+
+def p1_files(root):
+    """Under root: P1_FRAMES seeded frames of WaterScenes' camera size,
+    one radar CSV of P1_RADAR_POINTS points in data/example.py's columns,
+    one npz map, and the weight file of EN-GDF-PN-S0's seeded bf16 weights
+    (offset and modulator convs drawn), unstamped and stamped
+    torch-transplant."""
+    from PIL import Image
+    from achelous_tpu_torch.data.example import write_radar_csv
+    from achelous_tpu_torch.entry import perturb_deform_convs, serving_config
+    from achelous_tpu_torch.models.achelous import create_model
+    from achelous_tpu_torch.predict import TRANSPLANT
+    from achelous_tpu_torch.weights import save_weights
+    rng = np.random.RandomState(7)
+    w, h = P1_FRAME
+    frames = []
+    for i in range(P1_FRAMES):
+        path = os.path.join(root, f"frame{i}.jpg")
+        # sky over water, with noise: a frame the letterbox resamples
+        img = np.concatenate([np.full((h // 2, w, 3), (150, 180, 210)),
+                              np.full((h - h // 2, w, 3), (20, 60, 90))])
+        img = np.clip(img + rng.randint(-40, 40, img.shape), 0, 255)
+        Image.fromarray(img.astype(np.uint8)).save(path, quality=95)
+        frames.append(path)
+    csv = write_radar_csv(os.path.join(root, "radar.csv"), P1_RADAR_POINTS,
+                          rng)
+    npz = os.path.join(root, "radar.npz")
+    np.savez(npz, arr_0=(rng.rand(3, 320, 320) * 4).astype(np.float32))
+    model = create_model(serving_config(), "cpu",
+                         torch.Generator().manual_seed(0))
+    perturb_deform_convs(model)
+    sd = model.state_dict()             # bf16 parameters, float32 norms
+    weights = save_weights(os.path.join(root, "weights.pt"), sd)
+    stamped = save_weights(os.path.join(root, "transplant.pt"), sd,
+                           {"provenance": TRANSPLANT})
+    return frames, csv, npz, weights, stamped
+
+
+def match_detections(label, got, want, conf, frame_w):
+    """Pair `detect` results by class and box (frame pixels, within
+    P1_BOX_REL of the frame's width); a detection left unpaired must score
+    within P1_SCORE_EDGE of `conf`, and is logged.  Returns the largest
+    box difference of a pair, in pixels."""
+    tol = P1_BOX_REL * frame_w
+    free = list(range(len(got["boxes"])))
+    worst, edge = 0.0, []
+    for i, (box, cls) in enumerate(zip(want["boxes"], want["classes"])):
+        diffs = [(float(np.abs(got["boxes"][j] - box).max()), j) for j in free
+                 if got["classes"][j] == cls]
+        d, j = min(diffs, default=(np.inf, None))
+        if d <= tol:
+            free.remove(j)
+            worst = max(worst, d)
+        else:
+            edge.append(("CPU", i, float(want["scores"][i])))
+    edge += [("card", j, float(got["scores"][j])) for j in free]
+    for side, i, score in edge:
+        if abs(score - conf) > P1_SCORE_EDGE:
+            raise AssertionError(f"{label}: {side} detection {i} (score "
+                                 f"{score}) has no partner on the other side")
+        log(f"{label}: {side} detection {i} at score {score}, within "
+            f"{P1_SCORE_EDGE} of the threshold {conf}, unpaired")
+    return worst
+
+
+def comparison_threshold(pred, args):
+    """A confidence threshold in the widest gap between consecutive
+    scores of ranks P1_RANKS of `pred`'s detections on `args` (NMS keeps
+    a box by the boxes above it alone, so the detections above it are the
+    same at any lower threshold)."""
+    keep = pred.request.confidence
+    pred.request.confidence = 0.0
+    try:
+        dets = pred.infer(*args)[0]
+    finally:
+        pred.request.confidence = keep
+    scores = (dets.obj_conf[0] * dets.cls_conf[0])[dets.valid[0]]
+    scores = scores.sort(descending=True)[0].tolist()
+    lo, hi = P1_RANKS
+    if len(scores) <= hi:
+        raise AssertionError(f"P1: {len(scores)} detections, fewer than "
+                             f"{hi + 1}")
+    k = max(range(lo, hi), key=lambda i: scores[i] - scores[i + 1])
+    return (scores[k] + scores[k + 1]) / 2
+
+
+def serving_error(got, want):
+    """max |got - want| / max(1, max |want|) of two tensors."""
+    g, w = got.float().cpu(), want.float().cpu()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError("non-finite output")
+    return ((g - w).abs().max() / max(1.0, w.abs().max().item())).item()
+
+
+def predictor_route(dev, label, weights, frames, csv, npz, want_launches):
+    """One weight route of P1: the bf16 predictor on the card serving each
+    frame (the counts read a frame at a time); the same predictor in
+    float32 on the card against one on the CPU, TF32 off; the bf16
+    outputs against the CPU's within MAIN_PATH_TOL.  Returns (the bf16
+    predictor, its launches, a frame's prepared inputs)."""
+    from PIL import Image
+    from achelous_tpu_torch.entry import serving_config
+    from achelous_tpu_torch.predict import AchelousPredictor
+
+    pred = AchelousPredictor.from_weights(serving_config(), weights,
+                                          device=dev)
+    pils = [Image.open(f).convert("RGB") for f in frames]
+    pred.detect(pils[0], radar_csv=csv)                       # warm-up
+    torch.cuda.synchronize()
+    launches = {}
+    for i, pil in enumerate(pils):
+        kw = dict(radar_csv=csv) if i % 2 == 0 else dict(radar_npz=npz)
+        r, counts = counted(lambda: pred.detect(pil, **kw))
+        if counts != want_launches:
+            raise AssertionError(f"P1 {label} frame {i}: launches {counts}, "
+                                 f"want {want_launches}")
+        add_counts(launches, counts)
+        log(f"P1 {label} frame {i} ({'csv' if 'radar_csv' in kw else 'npz'}"
+            f"): {len(r['boxes'])} detections, semantic "
+            f"{r['semantic'].shape}, launches {counts}")
+
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = serving_config(torch.float32)
+    card = AchelousPredictor.from_weights(cfg32, weights, device=dev)
+    cpu = AchelousPredictor.from_weights(cfg32, weights, device="cpu")
+    if card.cfg.deform_band != pred.cfg.deform_band:
+        raise AssertionError("P1: the float32 predictor took another band")
+    pil = pils[0]
+    h, w = pil.size[1], pil.size[0]
+    args_card = card.prepare(pil, None, csv)
+    args_cpu = cpu.prepare(pil, None, csv)
+    for name, a, b in zip(("image", "radar (splat)", "points"), args_card,
+                          args_cpu):
+        if not torch.equal(a.cpu(), b):
+            raise AssertionError(f"P1 {label}: prepared {name} differs "
+                                 f"between the card and the CPU")
+    out_card, out_cpu = card.infer(*args_card), cpu.infer(*args_cpu)
+    probs = {}
+    for name, i in (("semantic", 1), ("waterline", 2)):
+        probs[name] = (card._unletterbox_mask(out_card[i][0], (h, w)).cpu()
+                       - cpu._unletterbox_mask(out_cpu[i][0], (h, w))
+                       ).abs().max().item()
+    if max(probs.values()) > P1_PROB_TOL:
+        raise AssertionError(f"P1 {label}: unletterboxed probabilities "
+                             f"card vs CPU {probs} > {P1_PROB_TOL}")
+    conf = comparison_threshold(cpu, args_cpu)
+    for p in (card, cpu):
+        p.confidence = p.request.confidence = conf
+    got, want = card.detect(pil, radar_csv=csv), cpu.detect(pil, radar_csv=csv)
+    box_px = match_detections(f"P1 {label}", got, want, conf, w)
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32
+    log(f"P1 {label} float32 card vs CPU at {w}x{h}: {len(got['boxes'])} / "
+        f"{len(want['boxes'])} detections at confidence {conf:.6f}, "
+        f"boxes within {box_px:.3g} px, "
+        f"unletterboxed probabilities within "
+        + ", ".join(f"{k} {v:.3g}" for k, v in probs.items()))
+    del card
+
+    args = pred.prepare(pil, None, csv)
+    got = pred.infer(*args)
+    ref = cpu.infer(*(a.float().cpu() for a in args))
+    names = ["sem_prob", "lane_prob", "pc", "det0", "det1", "det2"]
+    errs = {n: serving_error(g, r) for n, g, r in
+            zip(names, [*got[1:4], *got[4]], [*ref[1:4], *ref[4]])}
+    log(f"P1 {label} bf16 card vs float32 CPU (max err / max(1, max|ref|)): "
+        + ", ".join(f"{n} {e:.3g}" for n, e in errs.items()))
+    bad = {n: e for n, e in errs.items() if e > MAIN_PATH_TOL}
+    if bad:
+        raise AssertionError(f"P1 {label} outside {MAIN_PATH_TOL}: {bad}")
+    return pred, launches, args
+
+
+def predictor_phase(dev, root):
+    """P1: the predictor at full width on both weight routes, then the
+    heatmap, the CLI's predict mode and its fps probe.  Returns (the
+    unstamped bf16 predictor, a frame's prepared inputs, the launches of
+    every served frame)."""
+    from PIL import Image
+    from achelous_tpu_torch import predict_cli
+
+    frames, csv, npz, weights, stamped = p1_files(root)
+    launches = {}
+    routes = {}
+    for label, path, key in (("unstamped", weights, "banded"),
+                             ("torch-transplant", stamped, "band None")):
+        pred, counts, args = predictor_route(dev, label, path, frames, csv,
+                                             npz, P1_LAUNCHES[key])
+        want_band = None if key == "band None" else BAND
+        if pred.cfg.deform_band != want_band:
+            raise AssertionError(f"P1 {label}: band {pred.cfg.deform_band}")
+        add_counts(launches, counts)
+        routes[key] = (pred, args)
+    pred, args = routes["banded"]
+    per_frame = P1_LAUNCHES["banded"]
+
+    hm, counts = counted(lambda: pred.detect_heatmap(
+        Image.open(frames[0]), radar_csv=csv))
+    if hm.shape != (320, 320) or not (0.0 <= hm.min() <= hm.max() <= 1.0):
+        raise AssertionError(f"P1 heatmap: shape {hm.shape}, range "
+                             f"{hm.min()}..{hm.max()}")
+    if counts != per_frame:
+        raise AssertionError(f"P1 heatmap launches {counts}")
+    add_counts(launches, counts)
+    log(f"P1 detect_heatmap: {hm.shape}, max {hm.max():.4f}")
+
+    out = os.path.join(root, "cli")
+    common = ["--weights", weights, "--radar_csv", csv, "--image", frames[0],
+              "--device", str(dev)]
+    summary, counts = counted(lambda: predict_cli.main(
+        ["--mode", "predict", "--out", out] + common))
+    stem = os.path.splitext(os.path.basename(frames[0]))[0]
+    made = sorted(os.listdir(out))
+    if made != sorted(stem + s for s in (".json", "_masks.npz", "_vis.jpg")):
+        raise AssertionError(f"P1 CLI predict wrote {made}")
+    masks = np.load(os.path.join(out, stem + "_masks.npz"))
+    if masks["semantic"].shape != P1_FRAME[::-1]:
+        raise AssertionError(f"P1 CLI masks {masks['semantic'].shape}")
+    if counts != per_frame:
+        raise AssertionError(f"P1 CLI predict launches {counts}")
+    add_counts(launches, counts)
+    log(f"P1 CLI predict: {made}, {summary['num_detections']} detections")
+
+    res, counts = counted(lambda: predict_cli.main(
+        ["--mode", "fps", "--test_interval", str(FPS_INTERVAL)] + common))
+    if counts != {k: v * (FPS_INTERVAL + 1)                 # with a warm-up
+                  for k, v in per_frame.items()}:
+        raise AssertionError(f"P1 fps launches {counts}")
+    add_counts(launches, counts)
+    log(f"P1 fps probe (preprocess + forward + NMS + unmap, bf16, "
+        f"{P1_FRAME[0]}x{P1_FRAME[1]} frame, {FPS_INTERVAL} detections): "
+        f"{res['seconds_per_image']:.6f} s/image, {res['fps']:.3f} fps")
+    pred_none, _ = routes["band None"]
+    args_fps = predict_cli.build_parser().parse_args(
+        ["--test_interval", str(FPS_INTERVAL)] + common)
+    res, counts = counted(lambda: predict_cli.run_fps_probe(pred_none,
+                                                            args_fps))
+    add_counts(launches, counts)
+    log(f"P1 fps probe at band None (torch-transplant weights): "
+        f"{res['seconds_per_image']:.6f} s/image, {res['fps']:.3f} fps")
+    log(f"P1 launches {launches}")
+    return pred, args, launches
+
+
+def export_phase(pred, args, root):
+    """X1: `export_program` of the bf16 predictor at batch 1, reloaded with
+    `torch.export.load`: the graph's kernel nodes, their launches when the
+    program runs, and its outputs against the eager request function's
+    (bit-equal expected; each within one bf16 step, detections equal)."""
+    from achelous_tpu_torch import predict
+
+    t0 = time.perf_counter()
+    path = predict.export_program(pred, os.path.join(root, "x1.pt2"))
+    t_export = time.perf_counter() - t0
+    nodes = predict.kernel_nodes(path)
+    if nodes != X1_NODES:
+        raise AssertionError(f"X1: kernel nodes {nodes}, want {X1_NODES}")
+    t0 = time.perf_counter()
+    program = predict.load_program(path)
+    t_load = time.perf_counter() - t0
+    want = torch.utils._pytree.tree_leaves(pred.infer(*args))
+    with torch.inference_mode():
+        flat, counts = counted(lambda: program(*args))
+    if counts != X1_NODES:
+        raise AssertionError(f"X1: launches {counts}, want {X1_NODES}")
+    got = torch.utils._pytree.tree_leaves(predict.unpack(flat))
+    unequal = 0
+    for g, w in zip(got, want):
+        if g.dtype != w.dtype or g.shape != w.shape:
+            raise AssertionError(f"X1: {g.dtype}{tuple(g.shape)} against "
+                                 f"{w.dtype}{tuple(w.shape)}")
+        if torch.equal(g, w):
+            continue
+        unequal += 1
+        if not g.is_floating_point() or not torch.allclose(
+                g.float(), w.float(), rtol=2 ** -7, atol=0):
+            raise AssertionError(f"X1: an output {tuple(w.shape)} differs "
+                                 f"from eager by more than one bf16 step")
+    from achelous_tpu_torch.trace_serving import profile_frames
+    with torch.inference_mode():
+        ms_program = cuda_ms(lambda: program(*args), iters=20)
+        ms_eager = cuda_ms(lambda: pred.request(*args), iters=20)
+        profiles = {name: profile_frames(f, args)[:3] for name, f in
+                    (("exported", program), ("eager", pred.request))}
+    log(f"X1 export: {t_export:.1f} s to export, {t_load:.1f} s to load, "
+        f"{os.path.getsize(path)} bytes; kernel nodes {nodes}; launches "
+        f"{counts}; {len(want) - unequal} of {len(want)} outputs bit-equal "
+        f"to eager (the rest within one bf16 step); request "
+        f"{ms_program:.3f} ms exported, {ms_eager:.3f} ms eager; under "
+        f"torch.profiler (wall / device busy ms, kernels a frame) "
+        + "; ".join(f"{n} {w:.3f} / {b:.3f}, {k:.0f}"
+                    for n, (w, b, k) in profiles.items()))
+    return counts
+
+
+def sweep_phase(dev):
+    """C1: each configuration of SWEEP served as the paths of phase 4,
+    its kernels held against their plain versions on the inputs of the
+    requests' own launches, and timed."""
+    launches = {}
+    for label, kw, want in SWEEP:
+        records = []
+        with phase(f"C1 {label}"):
+            counts, model, fn = serve_path(dev, label, want, records, **kw)
+            check_on_path(f"C1 {label}", records)
+            q = tuple(torch.rand(s, device=dev).to(fn.cfg.dtype) for s in
+                      ((1, 3, 320, 320), (1, 3, 320, 320), (1, 512, 5)))
+            time_path(label, model, fn, q)
+        add_counts(launches, counts)
+        del model, fn, records
+        torch.cuda.empty_cache()
+    return launches
+
+
 def main():
     # cuBLAS reads this when it starts; grads_of's deterministic mode
     # needs it
@@ -1502,8 +1900,8 @@ def main():
     kernels = check_kernels(dev)
     launches = {n: 0 for n in kernels}
     for label, backbone, pc_model, want_rose in PATHS:
-        counts, model, fn = serve_path(dev, label, backbone, pc_model,
-                                       want_rose)
+        counts, model, fn = serve_path(dev, label, want_rose,
+                                       backbone=backbone, pc_model=pc_model)
         for n, c in counts.items():
             launches[n] += c
         q = tuple(torch.rand(s, device=dev).to(fn.cfg.dtype) for s in
@@ -1529,6 +1927,16 @@ def main():
     with phase("F1 fit on a WaterScenes tree"):
         for name, count in fit_on_the_card(dev).items():
             launches[name] += count
+    import tempfile
+    with tempfile.TemporaryDirectory() as root:
+        with phase("P1 the predictor"):
+            pred, args, counts = predictor_phase(dev, root)
+            add_counts(launches, counts)
+        with phase("X1 export on the card"):
+            add_counts(launches, export_phase(pred, args, root))
+        del pred, args
+    torch.cuda.empty_cache()
+    add_counts(launches, sweep_phase(dev))
     rows = []
     for name, source, replaces in (
             ("fused_radarconv", "achelous_tpu_torch/csrc/deform.cu",

@@ -702,3 +702,76 @@ def test_radar_splat_on_the_card_equals_the_cpu(cuda_device):
     assert torch.equal(splat_radar_points(pts[0].to(cuda_device),
                                           valid[0].to(cuda_device)).cpu(),
                        splat_radar_points(pts[0], valid[0]))
+
+
+# The kernels as custom operators (torch.library): opcheck's schema, fake
+# tensor and AOT-dispatch checks at the serving shapes.  The operators carry
+# no autograd registration of their own (the autograd Functions around them
+# give the gradients, held above), so opcheck's autograd-registration check,
+# which needs inputs that ask for a gradient, is not among them.
+OPCHECK = ("test_schema", "test_faketensor", "test_aot_dispatch_dynamic")
+
+
+def op_cases(device):
+    rng = np.random.RandomState(11)
+    x, *w = k1_args(rng, 1, 8, 8, 80, 80, 0.5, 3.0, device, torch.bfloat16)
+    k1 = (x, *(t.float() for t in hopper_deform.pack_radarconv_weights(*w)),
+          BAND)
+    k2x = torch.rand(1, 12, 40, 40, device=device, dtype=torch.bfloat16)
+    off = (torch.rand(1, 18, 40, 40, device=device) * 6 - 3).bfloat16()
+    mask = torch.rand(1, 9, 40, 40, device=device).bfloat16()
+    k3 = (*k3_args(rng, 1, 8, 100, 32, 128, device, torch.bfloat16), 32 ** -0.5)
+    xyz = torch.rand(1, 512, 3, device=device)
+    return {"fused_radarconv": k1,
+            "deform_samples": (k2x, off, mask, BAND),
+            "deform_samples band None": (k2x, off, mask, None),
+            "fused_bias_attention": k3,
+            "farthest_point_sample": (xyz, 128, None),
+            "farthest_point_sample valid": (xyz, 128,
+                                            torch.rand(1, 512,
+                                                       device=device) > 0.2)}
+
+
+@pytest.mark.parametrize("case", ["fused_radarconv", "deform_samples",
+                                  "deform_samples band None",
+                                  "fused_bias_attention",
+                                  "farthest_point_sample",
+                                  "farthest_point_sample valid"])
+def test_custom_ops_pass_opcheck(cuda_device, case):
+    args = op_cases(cuda_device)[case]
+    op = getattr(torch.ops.achelous, case.split()[0])
+    torch.library.opcheck(op, args, test_utils=OPCHECK)
+
+
+def test_exported_program_launches_the_kernels(cuda_device, tmp_path):
+    """EN-GDF-PN-S0's request function (bf16, batch 1) exported on the
+    card: its graph holds K1 x4 and K2 x4 as operator nodes, the program
+    torch.export.load returns launches them, and its outputs equal the
+    eager request function's (each within one bf16 step)."""
+    from achelous_tpu_torch import predict
+    from achelous_tpu_torch.entry import perturb_deform_convs, serving_config
+
+    pred = predict.AchelousPredictor(serving_config(), device=cuda_device)
+    perturb_deform_convs(pred.model)
+    path = predict.export_program(pred, str(tmp_path / "p.pt2"))
+    nodes = {"fused_radarconv": 4, "deform_samples": 4}
+    assert predict.kernel_nodes(path) == nodes
+    program = predict.load_program(path)
+    rng = np.random.RandomState(12)
+    args = tuple(torch.from_numpy(rng.rand(*t.shape).astype(np.float32))
+                 .to(cuda_device, t.dtype)
+                 for t in predict.example_request(pred.cfg, cuda_device))
+    want = torch.utils._pytree.tree_leaves(pred.infer(*args))
+    k1, k2 = hopper_deform.fused_radarconv, hopper_deform.deform_samples
+    before = k1.launches, k2.launches
+    with torch.inference_mode():
+        got = torch.utils._pytree.tree_leaves(predict.unpack(program(*args)))
+    torch.cuda.synchronize()
+    assert (k1.launches - before[0], k2.launches - before[1]) == (4, 4)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype and g.shape == w.shape
+        if g.is_floating_point():
+            torch.testing.assert_close(g.float(), w.float(), rtol=2 ** -7,
+                                       atol=0)
+        else:
+            assert torch.equal(g, w)
