@@ -1,12 +1,13 @@
 """Model configuration (counterpart of achelous_tpu/core/config.py).
 
 One width table and one frozen dataclass that every module reads.  The
-JAX package's checks hold; beyond them only the axes the port supports are
-accepted: the EdgeNeXt (`en`), MobileViT (`mv`) and EfficientFormerV2
-(`ef`) backbones at S0-S2, the `gdf` and `cdf` necks with SPP or SPPF
-(`use_spp`), and the PointNet (`pn`) and PointNet++ (`pn2`) point-cloud
-branches.  The JAX package's other axes (`NOT_PORTED`) raise a ValueError
-that says so.
+port builds every axis the JAX package builds: the eight backbones
+(`BACKBONES`) at S0-S2 and EfficientFormerV2 (`ef`) also at L, the `gdf`,
+`cdf` and `rdf` necks with SPP or SPPF (`use_spp`), and the PointNet
+(`pn`) and PointNet++ (`pn2`) point-cloud branches.  It refuses what the
+JAX package refuses, with its messages: the `rdf` neck takes only the
+MobileOne (`mo`) and FastViT (`fv`) backbones, and only `ef` has the L
+size.
 """
 from __future__ import annotations
 
@@ -23,12 +24,9 @@ WIDTHS: dict[str, Tuple[int, int, int, int]] = {
     "S0": (32, 48, 96, 176),
 }
 
-BACKBONES = ("en", "mv", "ef")
-NECKS = ("gdf", "cdf")
+BACKBONES = ("en", "mv", "ef", "ev", "rv", "pf", "mo", "fv")
+NECKS = ("gdf", "cdf", "rdf")
 PC_MODELS = ("pn", "pn2")
-# the JAX package's values that the port does not build yet
-NOT_PORTED = {"backbone": ("ev", "rv", "pf", "mo", "fv"), "neck": ("rdf",),
-              "phi": ("L",)}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,18 +62,24 @@ class AchelousConfig:
     deform_band: Optional[int] = 4
 
     def __post_init__(self):
-        for axis, ported in (("phi", ("S0", "S1", "S2")),
-                             ("backbone", BACKBONES), ("neck", NECKS)):
-            value = getattr(self, axis)
-            if value in NOT_PORTED[axis]:
-                raise ValueError(f"{axis} {value!r} is not ported to "
-                                 f"PyTorch yet (ported: {ported})")
-            if value not in ported:
-                raise ValueError(f"{axis} must be one of {ported}, got "
-                                 f"{value!r}")
+        if self.phi not in WIDTHS:
+            raise ValueError(f"phi must be one of {tuple(WIDTHS)}, got "
+                             f"{self.phi!r}")
+        if self.backbone not in BACKBONES:
+            raise ValueError(f"backbone must be one of {BACKBONES}, got "
+                             f"{self.backbone!r}")
+        if self.neck not in NECKS:
+            raise ValueError(f"neck must be one of {NECKS}, got "
+                             f"{self.neck!r}")
         if self.pc_model not in PC_MODELS:
             raise ValueError(f"pc_model must be one of {PC_MODELS}, got "
                              f"{self.pc_model!r}")
+        if self.neck == "rdf" and self.backbone not in ("mo", "fv"):
+            raise ValueError("rdf neck only supports 'mo'/'fv' backbones "
+                             "(reference neck/repdualfpn.py:53-69)")
+        if self.phi == "L" and self.backbone != "ef":
+            raise ValueError("only EfficientFormerV2 supports the L size "
+                             "(reference neck/ghostdualfpn.py:96-98)")
         if self.resolution % 32 != 0:
             raise ValueError("resolution must be a multiple of 32")
         if self.num_seg > 31:
@@ -95,3 +99,6 @@ class AchelousConfig:
         """The reference's naming convention, e.g. EF-GDF-PN-S0."""
         return (f"{self.backbone.upper()}-{self.neck.upper()}-"
                 f"{self.pc_model.upper()}-{self.phi}")
+
+    def replace(self, **kw) -> "AchelousConfig":
+        return dataclasses.replace(self, **kw)

@@ -48,9 +48,12 @@ def lecun_normal_(w: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
 
 
 def init_params(model: nn.Module, generator: torch.Generator) -> nn.Module:
-    """Draw every conv/linear weight from `generator` in module order."""
+    """Draw every conv/linear weight from `generator` in module order (and
+    EdgeViT's depthwise ConvTranspose2d's, [C, 1, k, k]: its dim 0 is the
+    input, but its fan-in, k * k, is its flax kernel's)."""
     for m in model.modules():
-        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
+        if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.ConvTranspose2d,
+                          nn.Linear)):
             lecun_normal_(m.weight, generator)
             if m.bias is not None:
                 nn.init.zeros_(m.bias)

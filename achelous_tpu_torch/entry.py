@@ -8,8 +8,12 @@ At 320x320, bf16, batch 1: the 5-task forward, then decode + class-aware
 NMS.  The default is EN-GDF-PN-S0, the repository's flagship; `backbone`
 "ef" gives EF-GDF-PN-S0 and `pc_model` "pn2" EN-GDF-PN2-S0; `phi`, `neck`
 and `use_spp` give the other configurations of BENCH_SWEEP.json
-(EN-GDF-PN-S1/S2, SPPF, MV-GDF-PN-S1, EN-CDF-PN2-S2).  The radar
-map is channels-first [1,3,320,320], the image [1,3,320,320] and the
+(EN-GDF-PN-S1/S2, SPPF, MV-GDF-PN-S1, EN-CDF-PN2-S2) and every other one
+the JAX package builds: the backbones `ev`, `rv`, `pf`, `mo`, `fv`, the
+`rdf` neck (with `mo` or `fv`) and EfficientFormerV2-L (`backbone="ef",
+phi="L"`).  `deploy` serves the reparameterized form: the train form drawn
+from the generator, folded in float32 (`core/reparam.py`), then cast.  The
+radar map is channels-first [1,3,320,320], the image [1,3,320,320] and the
 points [1,512,5]; the example inputs are zeros.  Everything runs on the
 GPU unless the caller passes the CPU as `device`.
 """
@@ -69,19 +73,22 @@ def perturb_deform_convs(model, seed: int = 3):
                             rng.randn(*p.shape).astype(np.float32) * 0.1))
 
 
-def perturb_attention(model, seed: int = 4):
-    """Draw EfficientFormerV2's layer scales (1e-5 at init), attention bias
-    tables (0 at init) and talking heads from a numpy seed, so that the
-    attention branches, and the attention kernel, reach the outputs.  At
-    these scales zeroing the attention kernel's output moves
-    EF-GDF-PN-S0's outputs by most of their range, while bf16 stays well
-    inside chip_smoke.py's gate against float32; larger layer scales
-    drift past it on random weights."""
+def perturb_attention(model, seed: int = 4, layer_scale: float = 0.05):
+    """Draw the layer scales (1e-5 at init: EfficientFormerV2's, and
+    FastViT's and PoolFormer's where they remain) at `layer_scale`,
+    EfficientFormerV2's attention bias tables (0 at init) and talking
+    heads from a numpy seed, so that the blocks behind them, and the
+    attention kernel, reach the outputs.  At these scales zeroing the
+    attention kernel's output moves EF-GDF-PN-S0's outputs by most of
+    their range, while bf16 stays well inside chip_smoke.py's gate against
+    float32; larger layer scales drift past it on random weights, and
+    deeper models (EF-L, three times S0's attention blocks a stage) take
+    a smaller one."""
     rng = np.random.RandomState(seed)
     with torch.no_grad():
         for name, p in model.named_parameters():
             if "layer_scale" in name:
-                scale = 0.05
+                scale = layer_scale
             elif "attention_biases" in name or "talking_head" in name:
                 scale = 0.5
             else:
@@ -93,12 +100,15 @@ def perturb_attention(model, seed: int = 4):
 def entry(device: torch.device | str = torch.device("cuda"),
           generator: Optional[torch.Generator] = None,
           backbone: str = "en", pc_model: str = "pn", phi: str = "S0",
-          neck: str = "gdf", use_spp: bool = True):
+          neck: str = "gdf", use_spp: bool = True, deploy: bool = False,
+          state_dict: Optional[dict] = None):
     """(fn, example_args) for {backbone}-{neck}-{pc_model}-{phi} at 320^2,
     bf16, batch 1, on `device`, with parameters drawn from the CPU
-    `generator` (seed 0 when None).  Raises where the device is a GPU and
-    none is visible."""
+    `generator` (seed 0 when None) or taken from `state_dict` (train-form
+    keys), in the deploy form with `deploy`.  Raises where the device is a
+    GPU and none is visible."""
     cfg = serving_config(backbone=backbone, pc_model=pc_model, phi=phi,
                          neck=neck, use_spp=use_spp)
-    model = create_model(cfg, device, generator)
+    model = create_model(cfg, device, generator, deploy=deploy,
+                         state_dict=state_dict)
     return make_fn(model, cfg), example_inputs(cfg, 1, device)

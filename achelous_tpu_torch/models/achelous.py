@@ -10,9 +10,15 @@ The module tree is the reference's (nets/Achelous.py, IREncoder.py):
 `image_radar_encoder` holds the neck (`fpn`, which holds the backbone), the
 radar encoder and the per-scale fusion; `det_head` and `pc_seg_model` sit
 beside it.  So `state_dict()` keys are the reference torch keys.  The
-backbone is EdgeNeXt (`en`), MobileViT (`mv`) or EfficientFormerV2 (`ef`);
-the neck's fuse and decoder blocks ghost (`gdf`) or CSP (`cdf`) ones; the
-point-cloud branch PointNet (`pn`) or PointNet++ (`pn2`).
+backbone is any of the JAX package's eight (`make_backbone`); the neck's
+fuse and decoder blocks ghost (`gdf`), CSP (`cdf`) or RepVGG (`rdf`) ones;
+the point-cloud branch PointNet (`pn`) or PointNet++ (`pn2`).
+
+`Achelous(cfg, deploy=True)` builds the deploy form, in which every
+reparameterizable block (RepVGG, MobileOne, RepVGGDW, RepMixer, the large
+kernel conv) is its single fused conv; `core/reparam.reparameterize` folds
+a train-form state dict into its keys, and `create_model(..., deploy=True)`
+does both.
 """
 from __future__ import annotations
 
@@ -24,28 +30,47 @@ from torch import nn
 
 from achelous_tpu_torch.core.config import AchelousConfig, WIDTHS
 from achelous_tpu_torch.core.init import init_params
+from achelous_tpu_torch.core.reparam import reparameterize
 from achelous_tpu_torch.models.edgenext import EDGENEXT_VARIANTS
+from achelous_tpu_torch.models.edgevit import edgevit
 from achelous_tpu_torch.models.efficientformer import EfficientFormerV2
+from achelous_tpu_torch.models.fastvit import fastvit
 from achelous_tpu_torch.models.heads import DecoupleHead
+from achelous_tpu_torch.models.mobileone import MobileOne
 from achelous_tpu_torch.models.mobilevit import mobilevit
 from achelous_tpu_torch.models.necks import DualFPN
 from achelous_tpu_torch.models.pointnet import PointNetSeg
 from achelous_tpu_torch.models.pointnet2 import PointNet2Seg
+from achelous_tpu_torch.models.poolformer import poolformer
 from achelous_tpu_torch.models.rcnet import RCNet
+from achelous_tpu_torch.models.repvit import RepViT
 from achelous_tpu_torch.ops.norm import BatchNorm
 from achelous_tpu_torch.ops.primitives import ECA
 
 STAGES = (3, 4, 5)
 
 
-def make_backbone(cfg: AchelousConfig) -> nn.Module:
-    """The vision backbone named by `cfg.backbone` (`en`, `mv` or `ef`)."""
-    if cfg.backbone == "ef":
-        return EfficientFormerV2(cfg.phi, cfg.resolution,
-                                 in_chans=cfg.image_channels)
+def make_backbone(cfg: AchelousConfig, deploy: bool = False) -> nn.Module:
+    """The vision backbone named by `cfg.backbone`; `deploy` builds the
+    reparameterizable families (`rv`, `mo`, `fv`) in their fused form."""
+    c, phi = cfg.image_channels, cfg.phi
+    if cfg.backbone == "en":
+        return EDGENEXT_VARIANTS[phi](in_chans=c)
     if cfg.backbone == "mv":
-        return mobilevit(cfg.phi, in_chans=cfg.image_channels)
-    return EDGENEXT_VARIANTS[cfg.phi](in_chans=cfg.image_channels)
+        return mobilevit(phi, in_chans=c)
+    if cfg.backbone == "ef":
+        return EfficientFormerV2(phi, cfg.resolution, in_chans=c)
+    if cfg.backbone == "ev":
+        return edgevit(phi, in_chans=c)
+    if cfg.backbone == "rv":
+        return RepViT(phi, in_chans=c, deploy=deploy)
+    if cfg.backbone == "pf":
+        return poolformer(phi, in_chans=c)
+    if cfg.backbone == "mo":
+        return MobileOne(phi, in_chans=c, deploy=deploy)
+    if cfg.backbone == "fv":
+        return fastvit(phi, in_chans=c, deploy=deploy)
+    raise ValueError(f"unknown backbone {cfg.backbone!r}")
 
 
 class IRFusion(nn.Module):
@@ -75,10 +100,12 @@ class IREncoder(IRFusion):
     """Image branch (backbone + neck), radar branch (RCNet) and their
     fusion; returns (fused P3/P4/P5, sem, lane)."""
 
-    def __init__(self, cfg: AchelousConfig):
+    def __init__(self, cfg: AchelousConfig, deploy: bool = False):
         super().__init__(cfg.phi)
-        self.fpn = DualFPN(cfg.num_seg, cfg.phi, backbone=make_backbone(cfg),
-                           family=cfg.neck, use_spp=cfg.use_spp)
+        self.fpn = DualFPN(cfg.num_seg, cfg.phi,
+                           backbone=make_backbone(cfg, deploy),
+                           family=cfg.neck, use_spp=cfg.use_spp,
+                           deploy=deploy)
         self.radar_encoder = RCNet(cfg.phi, band=cfg.deform_band,
                                    in_channels=cfg.radar_channels)
 
@@ -89,10 +116,10 @@ class IREncoder(IRFusion):
 
 
 class Achelous(nn.Module):
-    def __init__(self, cfg: AchelousConfig):
+    def __init__(self, cfg: AchelousConfig, deploy: bool = False):
         super().__init__()
-        self.cfg = cfg
-        self.image_radar_encoder = IREncoder(cfg)
+        self.cfg, self.deploy = cfg, deploy
+        self.image_radar_encoder = IREncoder(cfg, deploy)
         self.det_head = DecoupleHead(cfg.num_det, cfg.det_in_channels,
                                      nano_head=cfg.nano_head)
         pc_model = PointNet2Seg if cfg.pc_model == "pn2" else PointNetSeg
@@ -130,19 +157,31 @@ def _device(device: torch.device | str) -> torch.device:
 def create_model(cfg: AchelousConfig,
                  device: torch.device | str = torch.device("cuda"),
                  generator: Optional[torch.Generator] = None,
-                 train: bool = False) -> Achelous:
+                 train: bool = False, deploy: bool = False,
+                 state_dict: Optional[dict] = None) -> Achelous:
     """The model on `device` (the GPU unless the CPU is asked for),
     parameters drawn from `generator` (seed 0 when None) as the JAX
-    initializers draw them.  For serving: in eval mode, frozen, cast to
-    `cfg.dtype`.  With `train`: in train mode (batch statistics), float32
-    parameters that take gradients; `forward_compute` runs it in
-    `cfg.dtype`."""
+    initializers draw them, or taken from `state_dict` (train-form keys).
+    For serving: in eval mode, frozen, cast to `cfg.dtype`; with `deploy`,
+    the train form folded into the deploy form first, in float32 (as the
+    JAX predictor folds before it compiles).  With `train`: in train mode
+    (batch statistics), float32 parameters that take gradients;
+    `forward_compute` runs it in `cfg.dtype`."""
     device = _device(device)
+    if train and deploy:
+        raise ValueError("the deploy form serves only; train the train form")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     model = init_params(Achelous(cfg), generator)
+    if state_dict is not None:
+        model.load_state_dict({k: torch.as_tensor(v)
+                               for k, v in state_dict.items()})
     if train:
         return model.train().to(device)
+    if deploy:
+        folded = reparameterize(model.state_dict())
+        model = Achelous(cfg, deploy=True)
+        model.load_state_dict(folded)
     return cast_compute(model.eval().requires_grad_(False).to(device),
                         cfg.dtype)
 

@@ -33,15 +33,19 @@ from achelous_tpu_torch.ops.norm import BatchNorm
 from achelous_tpu_torch.ops.param_cache import ParamCache
 from achelous_tpu_torch.ops.resize import resize_bilinear
 
-DEPTHS = {"S2": (4, 4, 12, 8), "S1": (3, 3, 9, 6), "S0": (2, 2, 6, 4)}
+DEPTHS = {"L": (5, 5, 15, 10), "S2": (4, 4, 12, 8), "S1": (3, 3, 9, 6),
+          "S0": (2, 2, 6, 4)}
 EXPANSION_RATIOS = {
+    "L": {0: [4, 4, 4, 4, 4], 1: [4, 4, 4, 4, 4],
+          2: [4, 4, 4, 4, 3, 3, 3, 3, 3, 3, 3, 4, 4, 4, 4],
+          3: [4, 4, 4, 3, 3, 3, 3, 4, 4, 4]},
     "S2": {0: [4, 4, 4, 4], 1: [4, 4, 4, 4],
            2: [4, 4, 3, 3, 3, 3, 3, 3, 4, 4, 4, 4], 3: [4, 4, 3, 3, 3, 3, 4, 4]},
     "S1": {0: [4, 4, 4], 1: [4, 4, 4], 2: [4, 4, 3, 3, 3, 3, 4, 4, 4],
            3: [4, 4, 3, 3, 4, 4]},
     "S0": {0: [4, 4], 1: [4, 4], 2: [4, 3, 3, 3, 4, 4], 3: [4, 3, 3, 4]},
 }
-VIT_NUM = {"S2": 4, "S1": 2, "S0": 2}
+VIT_NUM = {"L": 6, "S2": 4, "S1": 2, "S0": 2}
 
 
 @functools.lru_cache(maxsize=None)

@@ -1,5 +1,5 @@
 """Dual-FPN neck with two segmentation decoders, NCHW (counterpart of
-achelous_tpu/models/necks.py, the `gdf` and `cdf` families).
+achelous_tpu/models/necks.py, the `gdf`, `cdf` and `rdf` families).
 
 As in the reference (neck/ghostdualfpn.py), the neck owns the vision
 backbone (`backbone`), so the keys of a reference state dict name its
@@ -13,10 +13,12 @@ Topology:
   + block) + head block -> seg logits at input resolution
   det feats = (fpn5 + s32, fpn4 + s16, fpn3 + s8)
 
-The fuse is a ghost bottleneck (`gdf`) or a CSP layer (`cdf`), the
-decoder block a ghost module or a CSP bottleneck.  The reference's CSP
-neck keeps the ghost neck's attribute names (`ghost_5_to_4`,
-`se_seg_ghost_3_to_2`, ...), and so does the port.
+The fuse is a ghost bottleneck (`gdf`), a CSP layer (`cdf`) or a RepVGG
+block (`rdf`), the decoder block a ghost module, a CSP bottleneck or a
+RepVGG block.  The reference's CSP and RepVGG necks keep the ghost neck's
+attribute names (`ghost_5_to_4`, `se_seg_ghost_3_to_2`, ...), and so does
+the port.  With `deploy`, the RepVGG blocks are built in their fused form
+(`core/reparam.py` folds the train form's state into it).
 """
 from __future__ import annotations
 
@@ -26,7 +28,7 @@ import torch
 from torch import nn
 
 from achelous_tpu_torch.core.config import WIDTHS
-from achelous_tpu_torch.ops.blocks import Bottleneck, CSPLayer
+from achelous_tpu_torch.ops.blocks import Bottleneck, CSPLayer, RepVGGBlock
 from achelous_tpu_torch.ops.primitives import (GhostBottleneck, GhostModule,
                                                ShuffleAttention, SPP, SPPF,
                                                Upsample)
@@ -37,19 +39,26 @@ HOPS = ("3_to_2", "2_to_1", "1_to_0")
 class DualFPN(nn.Module):
     def __init__(self, num_seg: int, phi: str = "S0",
                  backbone: nn.Module | None = None, family: str = "gdf",
-                 use_spp: bool = True):
+                 use_spp: bool = True, deploy: bool = False):
         super().__init__()
-        if family not in ("gdf", "cdf"):
-            raise ValueError(f"neck family must be gdf or cdf, got {family!r}")
+        if family not in ("gdf", "cdf", "rdf"):
+            raise ValueError(f"neck family must be gdf, cdf or rdf, got "
+                             f"{family!r}")
         w = WIDTHS[phi]
-        ghost = family == "gdf"
 
         def fuse(c):                      # 2c -> c after upsample + concat
-            return (GhostBottleneck(2 * c, 2 * c, c) if ghost
-                    else CSPLayer(2 * c, c))
+            if family == "gdf":
+                return GhostBottleneck(2 * c, 2 * c, c)
+            if family == "cdf":
+                return CSPLayer(2 * c, c)
+            return RepVGGBlock(2 * c, c, deploy=deploy)
 
         def block(cin, cout):
-            return GhostModule(cin, cout) if ghost else Bottleneck(cin, cout)
+            if family == "gdf":
+                return GhostModule(cin, cout)
+            if family == "cdf":
+                return Bottleneck(cin, cout)
+            return RepVGGBlock(cin, cout, deploy=deploy)
 
         self.backbone = backbone
         self.spp = (SPP if use_spp else SPPF)(w[3], w[3])

@@ -1,18 +1,37 @@
-"""CSP blocks of the `cdf` neck, NCHW (counterpart of
-achelous_tpu/ops/blocks.py `Bottleneck` and `CSPLayer`; reference
-neck/cspdualfpn.py:42-78).
+"""Composite blocks of the necks, NCHW (counterpart of
+achelous_tpu/ops/blocks.py): the CSP blocks of the `cdf` neck
+(`Bottleneck`, `CSPLayer`; reference neck/cspdualfpn.py:42-78) and the
+reparameterizable `RepVGGBlock` of the `rdf` neck (reference
+backbone/conv_utils/repvgg_conv.py:40-165).
 
-Attribute names are the reference's (`conv1`, `conv2`, `conv3`, `m.{i}`),
-each a `ConvBN` (`conv`, `bn`), so reference state dicts and the JAX
-package's `dualfpn_neck_mapping(phi, "cdf")` name these parameters.
-`RepVGGBlock` comes with the `rdf` neck.
+Attribute names are the reference's (`conv1`, `conv2`, `conv3`, `m.{i}`,
+each a `ConvBN` (`conv`, `bn`); `rbr_dense`, `rbr_1x1`, `rbr_identity`,
+`rbr_reparam`), so reference state dicts and the JAX package's
+`dualfpn_neck_mapping(phi, ...)` name these parameters.
+
+`RepVGGBlock(deploy=True)` is the single fused 3x3 conv; the train-form
+state is folded into it by `core/reparam.py`, a pure state-dict transform.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
+
 import torch
+import torch.nn.functional as F
 from torch import nn
 
+from achelous_tpu_torch.ops.norm import BatchNorm
 from achelous_tpu_torch.ops.primitives import ConvBN
+
+
+def rep_branch(cin: int, cout: int, k: int, stride: int = 1,
+               groups: int = 1) -> nn.Sequential:
+    """A bias-free k x k conv (padding k//2) + BatchNorm(eps 1e-5): keys
+    `conv`, `bn`, the branch of every reparameterizable block."""
+    return nn.Sequential(OrderedDict(
+        conv=nn.Conv2d(cin, cout, k, stride, k // 2, groups=groups,
+                       bias=False),
+        bn=BatchNorm(cout)))
 
 
 class Bottleneck(nn.Module):
@@ -51,3 +70,29 @@ class CSPLayer(nn.Module):
     def forward(self, x):
         return self.conv3(torch.cat([self.m(self.conv1(x)), self.conv2(x)],
                                     dim=1))
+
+
+class RepVGGBlock(nn.Module):
+    """Train form: 3x3 conv+BN + 1x1 conv+BN + BN of the input (where the
+    widths agree and the stride is 1), then ReLU.  Deploy form: one 3x3
+    conv with bias (`rbr_reparam`), then ReLU."""
+
+    def __init__(self, cin: int, features: int, stride: int = 1,
+                 groups: int = 1, deploy: bool = False):
+        super().__init__()
+        if deploy:
+            self.rbr_reparam = nn.Conv2d(cin, features, 3, stride, 1,
+                                         groups=groups)
+            return
+        self.rbr_dense = rep_branch(cin, features, 3, stride, groups)
+        self.rbr_1x1 = rep_branch(cin, features, 1, stride, groups)
+        if cin == features and stride == 1:
+            self.rbr_identity = BatchNorm(cin)
+
+    def forward(self, x):
+        if hasattr(self, "rbr_reparam"):
+            return F.relu(self.rbr_reparam(x))
+        y = self.rbr_dense(x) + self.rbr_1x1(x)
+        if hasattr(self, "rbr_identity"):
+            y = y + self.rbr_identity(x)
+        return F.relu(y)

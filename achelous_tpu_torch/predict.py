@@ -93,22 +93,23 @@ class AchelousPredictor:
                  seed: int = 0, deploy: bool = False,
                  minmax_radar: bool = False,
                  device: torch.device | str = torch.device("cuda")):
-        """`state_dict` (tensors or arrays by the port's keys) replaces the
-        parameters drawn from `seed`.  `deploy` folds reparameterizable
-        blocks (RepVGG, MobileOne, RepMixer, ...) in JAX; no configuration
-        the port builds has one, so here, as in JAX for these
-        configurations, it changes nothing.  Raises where `device` is a
-        GPU and none is visible."""
+        """`state_dict` (tensors or arrays by the port's train-form keys)
+        replaces the parameters drawn from `seed`.  `deploy` folds every
+        reparameterizable block (RepVGG, MobileOne, RepVGGDW, RepMixer,
+        the large-kernel conv) into its single conv after the state dict
+        is loaded and before the compute cast, in float32, as JAX's
+        predictor folds before it compiles (`core/reparam.py`); where the
+        configuration has none (EN, MV, EF, EV, PF with gdf or cdf), the
+        model is the same.  Raises where `device` is a GPU and none is
+        visible."""
         self.cfg = cfg
         self.device = _device(device)
         self.confidence, self.nms_iou = confidence, nms_iou
         self.class_names = class_names
         self.minmax_radar = minmax_radar
         model = create_model(cfg, self.device,
-                             torch.Generator().manual_seed(seed))
-        if state_dict is not None:
-            model.load_state_dict({k: torch.as_tensor(v)
-                                   for k, v in state_dict.items()})
+                             torch.Generator().manual_seed(seed),
+                             deploy=deploy, state_dict=state_dict)
         self.model = model
         self.request = Request(model, confidence, nms_iou, max_det)
 

@@ -21,7 +21,8 @@ import argparse
 import json
 import os
 
-from achelous_tpu_torch.core.config import BACKBONES, NECKS, PC_MODELS
+from achelous_tpu_torch.core.config import (BACKBONES, NECKS, PC_MODELS,
+                                            WIDTHS)
 from achelous_tpu_torch.train.cli import parse_band
 
 
@@ -32,7 +33,7 @@ def build_parser():
                             "video", "fps"])
     p.add_argument("--backbone", default="en", choices=BACKBONES)
     p.add_argument("--neck", default="gdf", choices=NECKS)
-    p.add_argument("--phi", default="S0", choices=["S0", "S1", "S2"])
+    p.add_argument("--phi", default="S0", choices=sorted(WIDTHS))
     p.add_argument("--pc_model", default="pn", choices=PC_MODELS)
     p.add_argument("--resolution", type=int, default=320)
     p.add_argument("--confidence", type=float, default=0.35)
@@ -54,8 +55,9 @@ def build_parser():
                         "transplants), 'none' (unclipped) or an integer "
                         "cell radius")
     p.add_argument("--deploy", action="store_true",
-                   help="fold reparameterizable blocks (none in the "
-                        "configurations ported so far)")
+                   help="fold the reparameterizable blocks (RepVGG, "
+                        "MobileOne, RepVGGDW, RepMixer, large-kernel conv) "
+                        "into single convs before serving")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (default: the GPU)")
     p.add_argument("--out", default="export_results")

@@ -5,16 +5,22 @@ Usage:
   python -m achelous_tpu_torch.train.cli --backbone en --neck gdf --phi S0 \\
       --resolution 320 --bs 32 --epoch 100 --data_root /path/to/WaterScenes
 
-It trains on the GPU unless `--device cpu` is given.  The port builds the
-SPP neck and the point-cloud branch only, so `--spp` and `--is_pc` take
-True alone.
+It trains on the GPU unless `--device cpu` is given.  `--backbone`,
+`--neck` and `--phi` take every value the model configuration takes
+(`BACKBONES`, `NECKS`, `WIDTHS`), as the JAX package's CLI does; the
+training step is held against JAX's for EN-GDF-PN-S0, EF-GDF-PN-S0 and
+EN-GDF-PN2-S0 only, not yet for the other backbones, necks and sizes
+(their train forms run, with the reparameterizable blocks unfolded).  The
+trainer keeps the SPP neck and the point-cloud branch, so `--spp` and
+`--is_pc` take True alone.
 """
 from __future__ import annotations
 
 import argparse
 import os
 
-from achelous_tpu_torch.core.config import BACKBONES, NECKS, PC_MODELS
+from achelous_tpu_torch.core.config import (BACKBONES, NECKS, PC_MODELS,
+                                            WIDTHS)
 
 
 def str2bool(v: str) -> bool:
@@ -37,7 +43,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="Achelous trainer (PyTorch)")
     p.add_argument("--backbone", default="en", choices=BACKBONES)
     p.add_argument("--neck", default="gdf", choices=NECKS)
-    p.add_argument("--phi", default="S0", choices=["S0", "S1", "S2"])
+    p.add_argument("--phi", default="S0", choices=sorted(WIDTHS))
     p.add_argument("--pc_model", default="pn", choices=PC_MODELS)
     p.add_argument("--is_pc", type=str2bool, default=True)
     p.add_argument("--nd", type=str2bool, default=True,

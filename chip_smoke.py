@@ -65,9 +65,27 @@ BENCH_SWEEP.json (320x320, bf16, batch 1):
         graph, launched (and counted) when it runs, its outputs against
         the eager request function's
     C1  EN-GDF-PN-S1, EN-GDF-PN-S2, EN-GDF-PN-S0 with SPPF, MV-GDF-PN-S1
-        and EN-CDF-PN2-S2 (K4 x4 too), each served 8 requests as the
-        paths above, every launch's inputs held against the plain
+        and EN-CDF-PN2-S2 (K4 x4 too), each served C1_REQUESTS requests
+        as the paths above, every launch's inputs held against the plain
         version, and timed
+
+and the configurations of the JAX package that no phase above builds:
+
+    C2  EV-GDF-PN-S0, RV-GDF-PN-S0, PF-GDF-PN-S0 (K1 x4, K2 x4 a
+        request), MO-RDF-PN-S0 and FV-RDF-PN-S0 (the same) each in its
+        train form and its deploy form (every reparameterizable block
+        folded into one conv), and EF-GDF-PN-L (K1 x1, K2 x7, K3 x12),
+        each served 8 requests through entry() at 320x320, bf16, batch
+        1, on seeded weights whose offset convs and layer scales are
+        drawn (C2_LAYER_SCALE) and, in RV, MO and FV, whose backbone
+        BatchNorms' statistics and affine are drawn (C2_NORM_SCALE; at
+        init MobileOne's six summed branches a block grow its maps to
+        ~1e11);
+        every launch's inputs held against the plain version, the outputs
+        against float32 plain on the CPU, kernels a frame and ms a frame
+        logged; then each deploy form in float32 on the card (TF32 off)
+        against its own train form, within DEPLOY_TOL, their kernels a
+        frame side by side
 
   K2 is also held against its plain version on the
 exact route (band None) at C = 3, 320^2, and K4 at batch 3; K2's and K4's
@@ -196,6 +214,47 @@ SWEEP = (
     ("EN-CDF-PN2-S2", dict(phi="S2", neck="cdf", pc_model="pn2"),
      dict(SWEEP_LAUNCHES, farthest_point_sample=4)),
 )
+# C1 serves fewer requests than the main paths to leave C2 its time
+C1_REQUESTS = 4
+# C2: (label, entry() arguments, launches a request); the deploy forms'
+# labels end in "deploy"
+C2_LAUNCHES = {"fused_radarconv": 4, "deform_samples": 4}
+C2 = (
+    ("EV-GDF-PN-S0", dict(backbone="ev"), C2_LAUNCHES),
+    ("RV-GDF-PN-S0", dict(backbone="rv"), C2_LAUNCHES),
+    ("PF-GDF-PN-S0", dict(backbone="pf"), C2_LAUNCHES),
+    ("MO-RDF-PN-S0", dict(backbone="mo", neck="rdf"), C2_LAUNCHES),
+    ("MO-RDF-PN-S0 deploy", dict(backbone="mo", neck="rdf", deploy=True),
+     C2_LAUNCHES),
+    ("FV-RDF-PN-S0", dict(backbone="fv", neck="rdf"), C2_LAUNCHES),
+    ("FV-RDF-PN-S0 deploy", dict(backbone="fv", neck="rdf", deploy=True),
+     C2_LAUNCHES),
+    # RCNet at L is 10-96 channels wide: only block 0 (3 -> 3 in its
+    # RadarConv) is within K1's 8, the other seven take K2
+    ("EF-GDF-PN-L", dict(backbone="ef", phi="L"),
+     {"fused_radarconv": 1, "deform_samples": 7, "fused_bias_attention": 12}),
+)
+# C2's deploy form against its train form, both float32 on the card with
+# TF32 off: max |deploy - train| / max(1, max |train|) per output.  The
+# fold sums the branches' kernels before the conv instead of after: float32
+# rounding, ~1e-6 relative
+DEPLOY_TOL = 1e-4
+DEPLOY_REQUESTS = 2
+# C2's reparameterizable backbones: their BatchNorms' statistics and
+# affine drawn (c2_weights), the affine at about 1/sqrt(the branches a
+# block sums), so that a block keeps its input's scale as a trained one
+# does: MobileOne-S0 sums up to six (4 convs, the 1x1 scale branch, the
+# skip BN), RepViT's RepVGGDW and FastViT's MobileOne stem and embeddings
+# three.  At scale 1 MobileOne's maps grow by ~1e11 over the backbone; at
+# 0.5 the bf16 rounding its branches amplify reached 0.078 of the lane
+# map's scale on the card against float32
+C2_NORM_SCALE = {"rv": 0.5, "mo": 0.4, "fv": 0.6}
+# EfficientFormerV2-L has 6 attention blocks in each of stages 2-3 where
+# S0 has 2: its layer scales at a third of S0's 0.05 keep the attention
+# branches' sum at S0's scale (at 0.05 its maps grow to ~50 and bf16 drifts
+# to 0.073 of det2's scale on the card); zeroing K3's output still moves
+# every output by most of its range
+C2_LAYER_SCALE = {"L": 0.05 * 2 / 6}
 # P1, the predictor: WaterScenes' camera frames (width, height), radar
 # points a CSV, the fps probe's detections; each frame's launches on the
 # banded route (K1 on blocks 0-3, K2 on 4-7) and at band None (K2 on all
@@ -583,13 +642,14 @@ def record_set_abstraction(model):
     return records, handles
 
 
-def check_fps_on_path(npoints, card_records, ref_records):
+def check_fps_on_path(npoints, card_records, ref_records, n):
     """The PN2 path's FPS on the card picked exactly the plain version's
-    indices on the same bf16-rounded points, at every level."""
+    indices on the same bf16-rounded points, at every level of each of
+    the `n` requests."""
     from achelous_tpu_torch.ops.pointops import farthest_point_sample as plain
     kernel = wrappers()["farthest_point_sample"]
     for lvl, (card, ref) in enumerate(zip(card_records, ref_records)):
-        if len(card) != REQUESTS or len(ref) != REQUESTS:
+        if len(card) != n or len(ref) != n:
             raise AssertionError(f"sa{lvl + 1}: {len(card)} card and "
                                  f"{len(ref)} reference records")
         for i, ((xyz, centres), (rxyz, rcentres)) in enumerate(zip(card, ref)):
@@ -697,12 +757,14 @@ def check_on_path(label, records):
             for (n, d), e in sorted(worst.items(), key=str)))
 
 
-def serve_path(dev, label, want_rose, records=None, **path):
-    """Phase 4 and C1: serve REQUESTS requests through entry(**path) on
+def serve_path(dev, label, want_rose, records=None, n=REQUESTS, **path):
+    """Phase 4, C1 and C2: serve `n` requests through entry(**path) on
     one path (its config's name leads `label`), with the launch counts
     set to 0 just before and read just after; check the outputs against
     float32 plain on the CPU.  With `records`, the kernels' launch sites
-    keep the inputs of every launch there (`on_path_inputs`)."""
+    keep the inputs of every launch there (`on_path_inputs`).  Without a
+    `state_dict` in `path`, the seed-0 weights get their offset convs and
+    layer scales drawn (`perturb_deform_convs`, `perturb_attention`)."""
     from achelous_tpu_torch.entry import (entry, perturb_attention,
                                           perturb_deform_convs)
     from achelous_tpu_torch.models.achelous import cast_compute
@@ -711,13 +773,16 @@ def serve_path(dev, label, want_rose, records=None, **path):
     model, cfg = fn.model, fn.cfg
     if cfg.name != label.split()[0]:
         raise AssertionError(f"entry built {cfg.name}, want {label}")
-    perturb_deform_convs(model)
-    perturb_attention(model)
+    if path.get("deploy", False) != model.deploy:
+        raise AssertionError(f"{label}: deploy form {model.deploy}")
+    if path.get("state_dict") is None:
+        perturb_deform_convs(model)
+        perturb_attention(model)
     # the same (bf16) weights in float32 on the CPU: the plain versions
     ref_model = cast_compute(copy.deepcopy(model).cpu(), torch.float32)
     pn2 = cfg.pc_model == "pn2"
 
-    reqs = requests(cfg, REQUESTS)
+    reqs = requests(cfg, n)
     dev_reqs = [tuple(t.to(dev, cfg.dtype) for t in q) for q in reqs]
     fn(*dev_reqs[0])                                   # warm-up
     torch.cuda.synchronize()
@@ -740,8 +805,8 @@ def serve_path(dev, label, want_rose, records=None, **path):
                 raise AssertionError(f"{label} request {i}: kernel launches "
                                      f"{rose}, want {want_rose}")
     torch.cuda.synchronize()
-    counts = {n: f.launches for n, f in w.items()}
-    log(f"main path {label}: launches over {REQUESTS} requests {counts}; "
+    counts = {k: f.launches for k, f in w.items()}
+    log(f"main path {label}: launches over {n} requests {counts}; "
         f"a request {want_rose}")
 
     r, k = cfg.resolution, cfg.num_det
@@ -790,7 +855,7 @@ def serve_path(dev, label, want_rose, records=None, **path):
         for h in hooks + ref_hooks:
             h.remove()
         check_fps_on_path([getattr(model.pc_seg_model, f"sa{i}").npoint
-                           for i in range(1, 5)], card_sa, ref_sa)
+                           for i in range(1, 5)], card_sa, ref_sa, n)
         log(f"main path {label}: FPS indices on the card equal plain at "
             f"every level of every request")
     return counts, model, fn
@@ -807,6 +872,7 @@ def time_path(label, model, fn, dev_req):
     log(f"main path {label} under torch.profiler, 5 frames: kernels/frame "
         f"{kernels:.0f}, device busy {busy:.3f} ms/frame of {wall:.3f} ms "
         f"wall")
+    return ms_full, kernels
 
 
 # ---------------------------------------------------------------------------
@@ -1877,7 +1943,8 @@ def sweep_phase(dev):
     for label, kw, want in SWEEP:
         records = []
         with phase(f"C1 {label}"):
-            counts, model, fn = serve_path(dev, label, want, records, **kw)
+            counts, model, fn = serve_path(dev, label, want, records,
+                                           n=C1_REQUESTS, **kw)
             check_on_path(f"C1 {label}", records)
             q = tuple(torch.rand(s, device=dev).to(fn.cfg.dtype) for s in
                       ((1, 3, 320, 320), (1, 3, 320, 320), (1, 512, 5)))
@@ -1885,6 +1952,124 @@ def sweep_phase(dev):
         add_counts(launches, counts)
         del model, fn, records
         torch.cuda.empty_cache()
+    return launches
+
+
+def c2_weights(cfg):
+    """Train-form float32 weights of `cfg`'s path, on the CPU: seed 0, the
+    offset convs and layer scales drawn (`perturb_deform_convs`,
+    `perturb_attention`, the layer scales at `C2_LAYER_SCALE`'s where it
+    names the size) and, for the reparameterizable backbones
+    (`C2_NORM_SCALE`), each backbone BatchNorm's statistics and affine
+    drawn from a numpy seed, so that the folds fold more than identity
+    statistics."""
+    from achelous_tpu_torch.entry import (perturb_attention,
+                                          perturb_deform_convs)
+    from achelous_tpu_torch.models.achelous import create_model
+    from achelous_tpu_torch.ops.norm import BatchNorm
+
+    model = create_model(cfg.replace(dtype=torch.float32), "cpu",
+                         torch.Generator().manual_seed(0))
+    perturb_deform_convs(model)
+    perturb_attention(model, layer_scale=C2_LAYER_SCALE.get(cfg.phi, 0.05))
+    scale = C2_NORM_SCALE.get(cfg.backbone)
+    rng = np.random.RandomState(5)
+    with torch.no_grad():
+        for m in model.image_radar_encoder.fpn.backbone.modules():
+            if scale is None or not isinstance(m, BatchNorm):
+                continue
+            c = m.weight.numel()
+            for t, v in ((m.weight, scale * (1 + 0.1 * rng.randn(c))),
+                         (m.bias, scale * 0.1 * rng.randn(c)),
+                         (m.running_mean, 0.1 * rng.randn(c)),
+                         (m.running_var, 0.5 + rng.rand(c))):
+                t.copy_(torch.from_numpy(v.astype(np.float32)))
+    return {k: v.clone() for k, v in model.state_dict().items()}
+
+
+def deploy_against_train(dev, label, cfg, weights):
+    """The deploy form against its own train form on the same weights,
+    both float32 on the card with TF32 off: DEPLOY_REQUESTS requests, each
+    output within DEPLOY_TOL of the train form's scale; their kernel
+    launches a request equal; kernels a frame of each under the
+    profiler."""
+    from achelous_tpu_torch.entry import make_fn
+    from achelous_tpu_torch.models.achelous import create_model
+    from achelous_tpu_torch.trace_serving import profile_frames
+
+    cfg32 = cfg.replace(dtype=torch.float32)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    fns = {form: make_fn(create_model(cfg32, dev, state_dict=weights,
+                                      deploy=form == "deploy"), cfg32)
+           for form in ("train", "deploy")}
+    reqs = [tuple(t.to(dev) for t in q)
+            for q in requests(cfg32, DEPLOY_REQUESTS, seed=200)]
+    worst, counts, kernels = {}, {}, {}
+    with torch.inference_mode():
+        for q in reqs:
+            outs = {}
+            for form, fn in fns.items():
+                m = fn.model
+                outs[form], counts[form] = counted(
+                    lambda: m(*q))
+            (tdet, *trest), (ddet, *drest) = outs["train"], outs["deploy"]
+            for name, t, d in zip(("det0", "det1", "det2", "sem", "lane",
+                                   "pc"), (*tdet, *trest), (*ddet, *drest)):
+                e = ((d - t).abs().max() / max(1.0, t.abs().max().item())
+                     ).item()
+                worst[name] = max(worst.get(name, 0.0), e)
+    for form, fn in fns.items():
+        kernels[form] = profile_frames(fn, reqs[0], frames=3)[2]
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32
+    log(f"{label} float32 deploy vs train form on the card (max err / "
+        f"max(1, max|train|)): " + ", ".join(f"{n} {e:.3g}"
+                                             for n, e in worst.items()))
+    log(f"{label} kernels/frame under torch.profiler, float32: train form "
+        f"{kernels['train']:.0f}, deploy form {kernels['deploy']:.0f}; "
+        f"kernel launches a forward {counts['train']} / {counts['deploy']}")
+    if counts["train"] != counts["deploy"]:
+        raise AssertionError(f"{label}: launches differ between the forms")
+    bad = {n: e for n, e in worst.items() if e > DEPLOY_TOL}
+    if bad:
+        raise AssertionError(f"{label} deploy form outside {DEPLOY_TOL}: "
+                             f"{bad}")
+
+
+def c2_phase(dev):
+    """C2: each configuration of C2 served as the paths of C1 on the
+    weights of `c2_weights`; each deploy form then held against its train
+    form in float32 (`deploy_against_train`)."""
+    from achelous_tpu_torch.entry import serving_config
+
+    launches, ms, kernels = {}, {}, {}
+    for label, kw, want in C2:
+        records = []
+        with phase(f"C2 {label}"):
+            cfg = serving_config(**{k: v for k, v in kw.items()
+                                    if k != "deploy"})
+            weights = c2_weights(cfg)
+            counts, model, fn = serve_path(dev, label, want, records,
+                                           state_dict=weights, **kw)
+            check_on_path(f"C2 {label}", records)
+            q = tuple(torch.rand(s, device=dev).to(fn.cfg.dtype) for s in
+                      ((1, 3, 320, 320), (1, 3, 320, 320), (1, 512, 5)))
+            ms[label], kernels[label] = time_path(label, model, fn, q)
+            del model, fn, records
+            torch.cuda.empty_cache()
+            if kw.get("deploy"):
+                deploy_against_train(dev, label.split()[0], cfg, weights)
+        add_counts(launches, counts)
+        torch.cuda.empty_cache()
+    for label, _, _ in C2:
+        if label.endswith("deploy"):
+            base = label.split()[0]
+            log(f"C2 {base} bf16 bs1: train form {kernels[base]:.0f} "
+                f"kernels/frame, {ms[base]:.3f} ms/frame; deploy form "
+                f"{kernels[label]:.0f}, {ms[label]:.3f}")
     return launches
 
 
@@ -1937,6 +2122,8 @@ def main():
         del pred, args
     torch.cuda.empty_cache()
     add_counts(launches, sweep_phase(dev))
+    torch.cuda.empty_cache()
+    add_counts(launches, c2_phase(dev))
     rows = []
     for name, source, replaces in (
             ("fused_radarconv", "achelous_tpu_torch/csrc/deform.cu",

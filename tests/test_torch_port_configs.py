@@ -12,9 +12,10 @@ with `pointnet2_entries` for PN2; for MV the backbone's entries come from
 which keeps each entry's stack index (JAX's `with_torch_prefix` unpacks
 four fields and cannot take the stacked entries).  Also: the backbones' parameter counts equal the
 reference's (tests/test_backbones.py), and the config refuses what the
-port does not build.
+JAX package refuses, with its messages.
 """
 import functools
+import re
 
 import jax
 import jax.numpy as jnp
@@ -134,18 +135,32 @@ def test_sppf_and_spp_share_parameters():
     assert shapes[True] == shapes[False]
 
 
+def jax_refusal(kw) -> str:
+    """The message of the JAX package's config on the same arguments."""
+    with pytest.raises(ValueError) as err:
+        JaxConfig(**kw)
+    return str(err.value)
+
+
 @pytest.mark.parametrize("kw,match", [
-    (dict(neck="rdf"), "neck 'rdf' is not ported"),
-    (dict(phi="L", backbone="ef"), "phi 'L' is not ported"),
-    (dict(backbone="ev"), "backbone 'ev' is not ported"),
-    (dict(backbone="rv"), "backbone 'rv' is not ported"),
-    (dict(backbone="pf"), "backbone 'pf' is not ported"),
-    (dict(backbone="mo"), "backbone 'mo' is not ported"),
-    (dict(backbone="fv"), "backbone 'fv' is not ported"),
+    # JAX's own constraints, with JAX's messages
+    (dict(neck="rdf", backbone="en"), None),
+    (dict(neck="rdf", backbone="mv"), None),
+    (dict(neck="rdf", backbone="ef"), None),
+    (dict(neck="rdf", backbone="ev"), None),
+    (dict(neck="rdf", backbone="rv"), None),
+    (dict(neck="rdf", backbone="pf"), None),
+    (dict(phi="L", backbone="en"), None),
+    (dict(phi="L", backbone="mo", neck="rdf"), None),
+    (dict(phi="L", backbone="fv"), None),
     (dict(backbone="xx"), "backbone must be one of"),
     (dict(neck="xdf"), "neck must be one of"),
     (dict(resolution=100), "multiple of 32"),
 ])
 def test_config_refuses_what_is_not_ported(kw, match):
+    """The port refuses what the JAX package refuses: its two constraints
+    (`rdf` only with `mo`/`fv`, `L` only with `ef`) with its messages."""
+    if match is None:
+        match = re.escape(jax_refusal(kw))
     with pytest.raises(ValueError, match=match):
         AchelousConfig(**kw)

@@ -10,7 +10,8 @@ at the shapes the serving paths give them (320x320, batch 1):
                            an unaligned input; every tile height and G)
   K3 fused_bias_attention  EfficientFormerV2 Attention4D: h = 8, N = 100,
                            dk = 32, dv = 128 (and N = 16 at batch 2; and
-                           N up to 400, h 1-8, dk 16-64, dv 8-1024)
+                           N up to 400, h 1-8, dk 16-64, dv 8-1024; the 12
+                           launches of one EF-GDF-PN-L request)
   K4 farthest_point_sample PointNet++: 512 -> 128 -> 32 -> 8 -> 4 points,
                            indices exactly equal (and N from 1 to 12288 at
                            batch 1 and 3, with ties, masks, no valid point;
@@ -23,7 +24,9 @@ serving shapes and both dtypes, and a grad-enabled DeformableConv2d and an
 EF model's Attention4Ds must give every parameter a gradient.  An eval
 after a bf16 training step must run on the new weights.  A PointNet++
 training step launches K4 on inputs with no graph.  The radar splat on the
-card equals the CPU's.
+card equals the CPU's.  Exported request functions (EN-GDF-PN-S0, and
+MO-RDF-PN-S0 in deploy form) hold K1 x4 and K2 x4 as operator nodes and
+launch them.
 
 Every test is marked `cuda` and skips where no GPU is visible.  This file
 imports no JAX, so it also runs on a machine without it:
@@ -749,9 +752,71 @@ def test_exported_program_launches_the_kernels(cuda_device, tmp_path):
     torch.export.load returns launches them, and its outputs equal the
     eager request function's (each within one bf16 step)."""
     from achelous_tpu_torch import predict
-    from achelous_tpu_torch.entry import perturb_deform_convs, serving_config
+    from achelous_tpu_torch.entry import serving_config
 
-    pred = predict.AchelousPredictor(serving_config(), device=cuda_device)
+    check_export(predict.AchelousPredictor(serving_config(),
+                                           device=cuda_device), tmp_path)
+
+
+def test_exported_deploy_program_launches_the_kernels(cuda_device, tmp_path):
+    """MO-RDF-PN-S0 in deploy form (every MobileOne and RepVGG block one
+    conv): exported as above, K1 x4 and K2 x4 as operator nodes, launched,
+    outputs equal eager's."""
+    from achelous_tpu_torch import predict
+    from achelous_tpu_torch.entry import serving_config
+
+    cfg = serving_config(backbone="mo", neck="rdf")
+    pred = predict.AchelousPredictor(cfg, deploy=True, device=cuda_device)
+    assert pred.model.deploy
+    check_export(pred, tmp_path)
+
+
+def test_attention_kernel_on_an_ef_l_request(cuda_device):
+    """One EF-GDF-PN-L request (320x320, bf16, batch 1) launches K3 12
+    times (6 attention blocks in each of stages 2 and 3, N = 100); each
+    launch's inputs give the plain version's result, in bf16 and again in
+    float32."""
+    from achelous_tpu_torch.entry import entry, perturb_attention
+
+    fn, _ = entry(cuda_device, backbone="ef", phi="L")
+    perturb_attention(fn.model)
+    records = []
+    launch = hopper_attention._attention_forward
+
+    def record(*args):
+        records.append([a.detach().clone() if torch.is_tensor(a) else a
+                        for a in args])
+        return launch(*args)
+
+    rng = np.random.RandomState(13)
+    args = [torch.from_numpy(rng.rand(*s).astype(np.float32))
+            .to(cuda_device, torch.bfloat16)
+            for s in ((1, 3, 320, 320), (1, 3, 320, 320), (1, 512, 5))]
+    before = hopper_attention.fused_bias_attention.launches
+    hopper_attention._attention_forward = record
+    try:
+        fn(*args)
+    finally:
+        hopper_attention._attention_forward = launch
+    torch.cuda.synchronize()
+    assert hopper_attention.fused_bias_attention.launches - before == 12
+    assert len(records) == 12
+    for *ts, scale in records:
+        assert tuple(ts[0].shape) == (1, 8, 100, 32)
+        for dt in (torch.bfloat16, torch.float32):
+            a = [t.to(dt) for t in ts]
+            torch.testing.assert_close(
+                launch(*a, scale),
+                attention.reference_bias_attention(*a, scale), **TOL[dt])
+
+
+def check_export(pred, tmp_path):
+    """`pred`'s request function exported: K1 x4 and K2 x4 operator nodes,
+    launched when the loaded program runs, its outputs within one bf16
+    step of the eager request function's."""
+    from achelous_tpu_torch import predict
+    from achelous_tpu_torch.entry import perturb_deform_convs
+
     perturb_deform_convs(pred.model)
     path = predict.export_program(pred, str(tmp_path / "p.pt2"))
     nodes = {"fused_radarconv": 4, "deform_samples": 4}
@@ -759,8 +824,8 @@ def test_exported_program_launches_the_kernels(cuda_device, tmp_path):
     program = predict.load_program(path)
     rng = np.random.RandomState(12)
     args = tuple(torch.from_numpy(rng.rand(*t.shape).astype(np.float32))
-                 .to(cuda_device, t.dtype)
-                 for t in predict.example_request(pred.cfg, cuda_device))
+                 .to(pred.device, t.dtype)
+                 for t in predict.example_request(pred.cfg, pred.device))
     want = torch.utils._pytree.tree_leaves(pred.infer(*args))
     k1, k2 = hopper_deform.fused_radarconv, hopper_deform.deform_samples
     before = k1.launches, k2.launches
