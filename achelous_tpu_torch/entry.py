@@ -14,7 +14,9 @@ the JAX package builds: the backbones `ev`, `rv`, `pf`, `mo`, `fv`, the
 phi="L"`).  `deploy` serves the reparameterized form: the train form drawn
 from the generator, folded in float32 (`core/reparam.py`), then cast.  The
 radar map is channels-first [1,3,320,320], the image [1,3,320,320] and the
-points [1,512,5]; the example inputs are zeros.  Everything runs on the
+points [1,512,5]; the example inputs are zeros.  `with_pc=False` serves
+the 3-task Achelous3T: `fn(image, radar)` returns (detections, sem,
+lane), and the example inputs are (image, radar).  Everything runs on the
 GPU unless the caller passes the CPU as `device`.
 """
 from __future__ import annotations
@@ -48,12 +50,12 @@ def make_fn(model, cfg: AchelousConfig):
     r = cfg.resolution
 
     @torch.inference_mode()
-    def fn(image, radar, points):
-        det, sem, lane, pc = model(image, radar, points)
+    def fn(image, radar, points=None):
+        det, sem, lane, *pc = model(image, radar, points)
         decoded = decode_outputs(det, (r, r))
         dets = non_max_suppression(decoded, cfg.num_det,
                                    conf_thres=CONF_THRES, nms_thres=NMS_THRES)
-        return dets, sem, lane, pc
+        return (dets, sem, lane, *pc)
 
     fn.model, fn.cfg = model, cfg
     return fn
@@ -101,14 +103,16 @@ def entry(device: torch.device | str = torch.device("cuda"),
           generator: Optional[torch.Generator] = None,
           backbone: str = "en", pc_model: str = "pn", phi: str = "S0",
           neck: str = "gdf", use_spp: bool = True, deploy: bool = False,
-          state_dict: Optional[dict] = None):
+          state_dict: Optional[dict] = None, with_pc: bool = True):
     """(fn, example_args) for {backbone}-{neck}-{pc_model}-{phi} at 320^2,
     bf16, batch 1, on `device`, with parameters drawn from the CPU
     `generator` (seed 0 when None) or taken from `state_dict` (train-form
-    keys), in the deploy form with `deploy`.  Raises where the device is a
-    GPU and none is visible."""
+    keys), in the deploy form with `deploy`, without the point-cloud
+    branch with `with_pc=False`.  Raises where the device is a GPU and
+    none is visible."""
     cfg = serving_config(backbone=backbone, pc_model=pc_model, phi=phi,
                          neck=neck, use_spp=use_spp)
     model = create_model(cfg, device, generator, deploy=deploy,
-                         state_dict=state_dict)
-    return make_fn(model, cfg), example_inputs(cfg, 1, device)
+                         state_dict=state_dict, with_pc=with_pc)
+    args = example_inputs(cfg, 1, device)
+    return make_fn(model, cfg), (args if with_pc else args[:2])

@@ -15,6 +15,8 @@ do: the top-k is a stable sort (`torch.topk` promises no order on ties,
 and equal costs are common early in training), and `torch.argmin` /
 `torch.argmax` return the first extremum.  The assignment runs without
 gradient (JAX's `stop_gradient`).  The loss takes the head's NCHW maps.
+Under `parallel.dist.batch_group` the assignment stays per image and the
+loss's sums and the foreground count are the global batch's.
 """
 from __future__ import annotations
 
@@ -24,6 +26,8 @@ from typing import Sequence
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from achelous_tpu_torch.parallel.dist import all_reduce_sum, current_group
 
 BIG_COST = 1e9  # excludes non-candidate anchors / padded GTs from the top-k
 TOPK = 10       # dynamic k = clamp(int(sum of the top-10 IoUs), 1) <= 10
@@ -204,7 +208,8 @@ class YoloXLoss:
             boxes.detach(), obj_logits.detach(), cls_logits.detach(),
             gt_boxes, gt_classes, gt_mask, x_c, y_c, s, self.num_classes)
 
-        num_fg = nfg.sum().clamp_min(1.0)
+        nfg = nfg.sum()
+        group = current_group()
         fg_f = fg.float()
         reg_t = torch.gather(gt_boxes, 1, mgt[..., None].expand(-1, -1, 4))
         cls_t = (F.one_hot(torch.gather(gt_classes.long(), 1, mgt),
@@ -215,4 +220,8 @@ class YoloXLoss:
         loss_obj = _bce_with_logits(obj_logits[..., None],
                                     fg_f[..., None]).sum()
         loss_cls = (_bce_with_logits(cls_logits, cls_t).sum(-1) * fg_f).sum()
-        return (5.0 * loss_iou + loss_obj + loss_cls) / num_fg
+        loss = 5.0 * loss_iou + loss_obj + loss_cls
+        if group is not None:
+            # the sums and the foreground count over the global batch
+            loss, nfg = all_reduce_sum(torch.stack([loss, nfg]), group)
+        return loss / nfg.clamp_min(1.0)

@@ -5,6 +5,11 @@ The integer target [B,H,W] uses `num_classes` as the ignore index; the
 one-hot target [B,H,W,num_classes+1] of `dice_loss` carries the ignore
 class in its last slot, which is dropped.  Everything is computed in
 float32 whatever the logits' dtype.
+
+Under `parallel.dist.batch_group` each loss is the global batch's: every
+numerator and denominator (the CE weights, the focal and NLL counts, the
+dice tp / fp / fn) is summed over the group before the division, through
+the differentiable `all_reduce_sum`.
 """
 from __future__ import annotations
 
@@ -13,12 +18,34 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from achelous_tpu_torch.parallel.dist import all_reduce_sum, current_group
+
 
 def _pixels(logits: torch.Tensor) -> torch.Tensor:
     """[B,C,H,W] -> [B*H*W, C] float32, pixels in the JAX package's NHWC
     order."""
     c = logits.shape[1]
     return logits.float().movedim(1, -1).reshape(-1, c)
+
+
+def _global_sums(*sums: torch.Tensor):
+    """The tensors summed over the open batch group (one all-reduce), or
+    as they are without one."""
+    group = current_group()
+    if group is None:
+        return sums
+    sizes = [t.numel() for t in sums]
+    flat = all_reduce_sum(torch.cat([t.reshape(-1) for t in sums]), group)
+    return tuple(t.view_as(s) for t, s in
+                 zip(torch.split(flat, sizes), sums))
+
+
+def _mean(x: torch.Tensor) -> torch.Tensor:
+    """The mean of every value of `x` over the global batch."""
+    if current_group() is None:
+        return x.mean()
+    total, n = _global_sums(x.sum(), x.new_full((), float(x.numel())))
+    return total / n
 
 
 def _picked_nll(logits, target, cls_weights, num_classes):
@@ -43,7 +70,8 @@ def ce_loss(logits: torch.Tensor, target: torch.Tensor,
     over the kept pixels (torch's mean with class weights)."""
     nll, keep, w = _picked_nll(logits, target, cls_weights, num_classes)
     w = keep.float() if w is None else w * keep
-    return (nll * w).sum() / w.sum().clamp_min(1e-12)
+    num, den = _global_sums((nll * w).sum(), w.sum())
+    return num / den.clamp_min(1e-12)
 
 
 def focal_loss(logits: torch.Tensor, target: torch.Tensor,
@@ -56,7 +84,7 @@ def focal_loss(logits: torch.Tensor, target: torch.Tensor,
         nll = nll * w
     logpt = -(nll * keep)
     pt = torch.exp(logpt)
-    return (-((1.0 - pt) ** gamma) * (alpha * logpt)).mean()
+    return _mean(-((1.0 - pt) ** gamma) * (alpha * logpt))
 
 
 def dice_loss(logits: torch.Tensor, onehot_target: torch.Tensor,
@@ -67,9 +95,9 @@ def dice_loss(logits: torch.Tensor, onehot_target: torch.Tensor,
     probs = F.softmax(_pixels(logits).reshape(n, -1, c), -1)
     tgt = onehot_target.reshape(n, -1, onehot_target.shape[-1]).float()
     tgt = tgt[..., :-1]
-    tp = (tgt * probs).sum((0, 1))
-    fp = probs.sum((0, 1)) - tp
-    fn = tgt.sum((0, 1)) - tp
+    tp, p_sum, t_sum = _global_sums((tgt * probs).sum((0, 1)),
+                                    probs.sum((0, 1)), tgt.sum((0, 1)))
+    fp, fn = p_sum - tp, t_sum - tp
     score = ((1 + beta ** 2) * tp + smooth) / (
         (1 + beta ** 2) * tp + beta ** 2 * fn + fp + smooth)
     return 1.0 - score.mean()
@@ -79,4 +107,4 @@ def pc_nll_loss(log_probs: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """NLL of per-point log-probabilities [B,N,K] at labels [B,N], taken
     once (the reference applies log_softmax a second time)."""
     picked = log_probs.float().gather(-1, labels[..., None].long())
-    return -picked.mean()
+    return -_mean(picked)

@@ -14,6 +14,10 @@ backbone is any of the JAX package's eight (`make_backbone`); the neck's
 fuse and decoder blocks ghost (`gdf`), CSP (`cdf`) or RepVGG (`rdf`) ones;
 the point-cloud branch PointNet (`pn`) or PointNet++ (`pn2`).
 
+`Achelous(cfg, with_pc=False)` is the 3-task Achelous3T (reference
+nets/Achelous.py:56-76, JAX `Achelous(with_pc=False)`): no `pc_seg_model`,
+the forward takes no point cloud and returns (det, sem, lane).
+
 `Achelous(cfg, deploy=True)` builds the deploy form, in which every
 reparameterizable block (RepVGG, MobileOne, RepVGGDW, RepMixer, the large
 kernel conv) is its single fused conv; `core/reparam.reparameterize` folds
@@ -116,21 +120,26 @@ class IREncoder(IRFusion):
 
 
 class Achelous(nn.Module):
-    def __init__(self, cfg: AchelousConfig, deploy: bool = False):
+    def __init__(self, cfg: AchelousConfig, deploy: bool = False,
+                 with_pc: bool = True):
         super().__init__()
-        self.cfg, self.deploy = cfg, deploy
+        self.cfg, self.deploy, self.with_pc = cfg, deploy, with_pc
         self.image_radar_encoder = IREncoder(cfg, deploy)
         self.det_head = DecoupleHead(cfg.num_det, cfg.det_in_channels,
                                      nano_head=cfg.nano_head)
-        pc_model = PointNet2Seg if cfg.pc_model == "pn2" else PointNetSeg
-        self.pc_seg_model = pc_model(cfg.pc_classes, cfg.pc_channels)
+        if with_pc:
+            pc_model = PointNet2Seg if cfg.pc_model == "pn2" else PointNetSeg
+            self.pc_seg_model = pc_model(cfg.pc_classes, cfg.pc_channels)
 
     def forward(self, image: torch.Tensor, radar_map: torch.Tensor,
-                point_cloud: torch.Tensor):
+                point_cloud: Optional[torch.Tensor] = None):
         """image [B,3,R,R], radar_map [B,3,R,R], point_cloud [B,N,5] ->
-        (det, sem, lane, pc)."""
+        (det, sem, lane, pc); (det, sem, lane) without the point-cloud
+        branch."""
         fused, sem, lane = self.image_radar_encoder(image, radar_map)
         det = self.det_head(fused)
+        if not self.with_pc:
+            return det, sem, lane
         pc, _ = self.pc_seg_model(point_cloud)
         return det, sem, lane, pc
 
@@ -158,7 +167,8 @@ def create_model(cfg: AchelousConfig,
                  device: torch.device | str = torch.device("cuda"),
                  generator: Optional[torch.Generator] = None,
                  train: bool = False, deploy: bool = False,
-                 state_dict: Optional[dict] = None) -> Achelous:
+                 state_dict: Optional[dict] = None,
+                 with_pc: bool = True) -> Achelous:
     """The model on `device` (the GPU unless the CPU is asked for),
     parameters drawn from `generator` (seed 0 when None) as the JAX
     initializers draw them, or taken from `state_dict` (train-form keys).
@@ -166,13 +176,18 @@ def create_model(cfg: AchelousConfig,
     the train form folded into the deploy form first, in float32 (as the
     JAX predictor folds before it compiles).  With `train`: in train mode
     (batch statistics), float32 parameters that take gradients;
-    `forward_compute` runs it in `cfg.dtype`."""
+    `forward_compute` runs it in `cfg.dtype`.  `with_pc=False` builds
+    the 3-task Achelous3T, which serves only: the JAX package's losses
+    take four outputs, so it does not train."""
     device = _device(device)
     if train and deploy:
         raise ValueError("the deploy form serves only; train the train form")
+    if train and not with_pc:
+        raise ValueError("Achelous3T (with_pc=False) serves only: the "
+                         "training losses take the point-cloud output")
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    model = init_params(Achelous(cfg), generator)
+    model = init_params(Achelous(cfg, with_pc=with_pc), generator)
     if state_dict is not None:
         model.load_state_dict({k: torch.as_tensor(v)
                                for k, v in state_dict.items()})
@@ -180,7 +195,7 @@ def create_model(cfg: AchelousConfig,
         return model.train().to(device)
     if deploy:
         folded = reparameterize(model.state_dict())
-        model = Achelous(cfg, deploy=True)
+        model = Achelous(cfg, deploy=True, with_pc=with_pc)
         model.load_state_dict(folded)
     return cast_compute(model.eval().requires_grad_(False).to(device),
                         cfg.dtype)

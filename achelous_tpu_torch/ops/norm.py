@@ -21,6 +21,15 @@ PointNet's fully connected BatchNorms over a batch of 2, whose two
 samples' features nearly coincide: there its variance is rounding
 noise.
 
+Under `parallel.dist.batch_group(group)` with more than one rank, the
+batch is this rank's rows of a global batch: the mean is the group's sum
+over its count, the variance the group's sum of squares about that mean
+over the count, both through the differentiable `all_reduce_sum`, so the
+output, the gradients and the running statistics (equal on every rank)
+are those of the global batch, as the JAX package's BatchNorm on a
+batch-sharded mesh computes them.  Without a group the code path is the
+single-process one.
+
 Parameter and buffer names are torch BatchNorm's (`weight`, `bias`,
 `running_mean`, `running_var`), so reference state dicts load by name.
 The channel axis is 1 for any rank ([B,C], [B,C,N], [B,C,H,W]).
@@ -29,6 +38,8 @@ from __future__ import annotations
 
 import torch
 from torch import nn
+
+from achelous_tpu_torch.parallel.dist import all_reduce_sum, current_group
 
 
 class BatchNorm(nn.Module):
@@ -54,8 +65,18 @@ class BatchNorm(nn.Module):
     def _train_forward(self, x: torch.Tensor, shape) -> torch.Tensor:
         xf = x.float()
         axes = [0] + list(range(2, x.dim()))
-        mean = xf.mean(axes)
-        var = (xf - mean.view(shape)).square().mean(axes)
+        group = current_group()
+        if group is None:
+            mean = xf.mean(axes)
+            var = (xf - mean.view(shape)).square().mean(axes)
+        else:
+            # the rows' count rides with the sums: one all-reduce
+            n = xf.new_full((1,), float(x.numel() // x.shape[1]))
+            sums = all_reduce_sum(torch.cat([xf.sum(axes), n]), group)
+            count = sums[-1]
+            mean = sums[:-1] / count
+            var = all_reduce_sum((xf - mean.view(shape)).square().sum(axes),
+                                 group) / count
         with torch.no_grad():
             m = self.momentum
             self.running_mean.mul_(1.0 - m).add_(m * mean)

@@ -14,13 +14,18 @@ feeds raw maps, so that is opt-in (`minmax_radar`), as in JAX.
 `torch.export` of the request function, saved with `torch.export.save`.
 Each hand-written kernel is one custom-operator node of the exported graph
 (`achelous::fused_radarconv`, ...), so the program that
-`torch.export.load` returns launches them.  JAX's `sharded_infer` waits
-for the multi-GPU port.
+`torch.export.load` returns launches them.
+
+`AchelousPredictor.sharded_infer(devices)` is the counterpart of JAX's
+data-parallel inference over a mesh (the reference's `nn.DataParallel`
+wrap, achelous.py:176): a batch split over devices, each holding a
+replica of the request function, the outputs gathered in batch order.
 
 Everything runs on the GPU unless the caller passes the CPU as `device`.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 import logging
 import os
@@ -118,6 +123,44 @@ class AchelousPredictor:
         """The request function on prepared inputs: (Detections,
         sem_prob, lane_prob, pc, det maps)."""
         return unpack(self.request(image, radar, points))
+
+    def sharded_infer(self, devices=None):
+        """Data-parallel batched inference (counterpart of JAX's
+        `sharded_infer`; the reference's `nn.DataParallel` wrap,
+        achelous.py:176): a function of (image [B,...], radar [B,...],
+        points [B,...]) that splits the batch into len(devices) equal
+        shards, runs shard i through a replica of the request function
+        (weights copied) on devices[i], and returns `infer`'s outputs with
+        every tensor concatenated in batch order on devices[0].  The shards
+        are issued one after another from the calling thread; a device
+        runs its shard while the host issues the next, up to the request's
+        host synchronisations (NMS's early exit).  Inference crosses no
+        batch boundary (eval BatchNorm, NMS per image), so the outputs
+        equal the single request's on the whole batch.  `devices` defaults
+        to every visible GPU; a batch that the devices do not divide
+        raises (JAX's fallback to XLA compositions is TPU machinery)."""
+        if devices is None:
+            n = torch.cuda.device_count()
+            if n == 0:
+                raise RuntimeError("no CUDA device is visible; pass the "
+                                   "devices, e.g. ['cpu', 'cpu']")
+            devices = [torch.device("cuda", i) for i in range(n)]
+        devices = [_device(d) for d in devices]
+        replicas = [copy.deepcopy(self.request).to(d) for d in devices]
+
+        @torch.inference_mode()
+        def infer_sharded(image, radar, points):
+            b, k = image.shape[0], len(devices)
+            if b % k:
+                raise ValueError(f"batch {b} not divisible by {k} devices")
+            s = b // k
+            outs = [req(*(t[i * s:(i + 1) * s].to(d, non_blocking=True)
+                          for t in (image, radar, points)))
+                    for i, (d, req) in enumerate(zip(devices, replicas))]
+            return unpack([torch.cat([o[j].to(devices[0]) for o in outs])
+                           for j in range(len(outs[0]))])
+
+        return infer_sharded
 
     @classmethod
     def from_weights(cls, cfg: AchelousConfig, weights_path: str,

@@ -4,7 +4,10 @@ achelous_tpu/train/checkpoints.py, which saves with orbax).
 `torch.save` of the state's tensors and counters under
 `<directory>/<name>.pt`: the model's state dict (parameters and BatchNorm
 statistics), log_vars, the optimizer state, the EMA, the counters and the
-host generators' states, so a resume is exact.  The policy is the reference's (utils_fit.py:345-381):
+host generators' states, so a resume is exact.  A run across ranks
+(`train/loop.fit(..., group=...)`) is saved by rank 0 with every rank's
+generators in `data_rng["ranks"]`; `fit` gives each rank its own back on
+a resume and refuses a resume at another number of ranks.  The policy is the reference's (utils_fit.py:345-381):
 a periodic epoch checkpoint named by its losses, `best_epoch_weights`
 (val loss <= the best so far) and `last_epoch_weights`; the newest
 `keep` periodic checkpoints are kept and older ones removed.

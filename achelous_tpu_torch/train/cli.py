@@ -5,7 +5,19 @@ Usage:
   python -m achelous_tpu_torch.train.cli --backbone en --neck gdf --phi S0 \\
       --resolution 320 --bs 32 --epoch 100 --data_root /path/to/WaterScenes
 
-It trains on the GPU unless `--device cpu` is given.  `--backbone`,
+It trains on the GPU unless `--device cpu` is given.  Started by torchrun,
+it trains across the ranks torchrun starts, as the JAX package's CLI does
+on a mesh of several processes (train/loop.fit with a group; `--bs` is
+the global batch):
+
+  torchrun --nproc_per_node=N -m achelous_tpu_torch.train.cli \\
+      --dist_backend nccl --data_root /path/to/WaterScenes
+
+`--device cuda` then means cuda:LOCAL_RANK, a GPU a rank (nccl); ranks
+that share one GPU give it explicitly with `--device cuda:0
+--dist_backend gloo` (NCCL refuses two ranks on one device), and ranks on
+the CPU take gloo.  Rank 0 prints, writes the history and the
+checkpoints.  Started without torchrun, it is one process.  `--backbone`,
 `--neck` and `--phi` take every value the model configuration takes
 (`BACKBONES`, `NECKS`, `WIDTHS`), as the JAX package's CLI does; the
 training step is held against JAX's for EN-GDF-PN-S0, EF-GDF-PN-S0 and
@@ -99,6 +111,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default: the GPU)")
     p.add_argument("--seed", type=int, default=0)
+    p.add_argument("--dist_backend", default="nccl",
+                   choices=["nccl", "gloo"],
+                   help="process group backend under torchrun: nccl for a "
+                        "GPU a rank, gloo for the CPU or a shared GPU")
     return p
 
 
@@ -146,18 +162,36 @@ def main(argv=None):
     val_ds = WaterScenesDataset(cfg, paths(args.val_annotation)) \
         if os.path.exists(val_path) else None
 
+    device, group, rank = args.device, None, 0
+    if "WORLD_SIZE" in os.environ:
+        from achelous_tpu_torch.parallel.dist import (init_from_env,
+                                                      rank_device)
+        device = rank_device(args.device, args.dist_backend,
+                             int(os.environ.get("LOCAL_RANK", 0)),
+                             int(os.environ.get("LOCAL_WORLD_SIZE", 1)))
+        if device.type == "cuda":
+            torch.cuda.set_device(device)
+        group, rank, _, _ = init_from_env(args.dist_backend)
     state = None
     if args.resume:
-        model = create_model(cfg, args.device,
+        model = create_model(cfg, device,
                              torch.Generator().manual_seed(args.seed),
                              train=True)
         state = create_train_state(model, cfg, tcfg, args.seed)
         state = CheckpointManager(os.path.join(args.log_dir, "ckpt")).restore(
             args.resume, state)
-    print(f"training {cfg.name} on {len(train_ds)} samples ({args.device})")
-    return fit(cfg, tcfg, train_ds, val_ds, log_dir=args.log_dir,
-               eval_period=args.eval_period, save_period=args.save_period,
-               state=state, seed=args.seed, device=args.device)
+    say = print if rank == 0 else (lambda msg: None)
+    say(f"training {cfg.name} on {len(train_ds)} samples ({device}"
+        + (f", {torch.distributed.get_world_size()} ranks over "
+           f"{args.dist_backend}" if group is not None else "") + ")")
+    try:
+        return fit(cfg, tcfg, train_ds, val_ds, log_dir=args.log_dir,
+                   eval_period=args.eval_period,
+                   save_period=args.save_period, state=state,
+                   seed=args.seed, device=device, progress=say, group=group)
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
 
 
 if __name__ == "__main__":

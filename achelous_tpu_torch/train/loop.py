@@ -6,8 +6,16 @@ Host batches come from a `WaterScenesDataset` through `batches_from`
 (numpy, channels-last, as the JAX package builds them) and a background
 prefetch; `device_batch` moves each to the device, channels-first, and
 splats a batch's raw radar points there (`ops/radar_splat.splat_radar_fast`)
-when it carries no pre-rasterized map.  One process, one device: the JAX
-package's mesh and `DistributedSampler` branches are not here.
+when it carries no pre-rasterized map.
+
+`fit(..., group=...)` trains across the ranks of a process group, as the
+JAX package's `fit` does on a mesh of several processes: every rank loads
+its `DistributedSampler` shard of each epoch, `tcfg.batch_size` is the
+global batch, and each step is the single-process step on the global
+batch (train/train_state.py).  That global batch is rank 0's rows, then
+rank 1's, and so on, as `jax.make_array_from_process_local_data`
+assembles it; with `grad_accum`, micro-batch m is that global batch's
+m-th slice, as in the JAX package's scan.
 """
 from __future__ import annotations
 
@@ -21,18 +29,21 @@ import torch
 
 from achelous_tpu_torch.core.config import AchelousConfig
 from achelous_tpu_torch.data.prefetch import prefetch
+from achelous_tpu_torch.data.sampler import DistributedSampler
 from achelous_tpu_torch.data.waterscenes import WaterScenesDataset, collate
 from achelous_tpu_torch.models.achelous import (_device, create_model,
                                                 forward_compute)
 from achelous_tpu_torch.ops.postprocess import (decode_outputs,
                                                 non_max_suppression)
 from achelous_tpu_torch.ops.radar_splat import splat_radar_fast
+from achelous_tpu_torch.parallel import dist as pdist
 from achelous_tpu_torch.train.checkpoints import CheckpointManager
 from achelous_tpu_torch.train.schedule import get_lr_scheduler, scale_lr
 from achelous_tpu_torch.train.train_state import (TrainConfig, TrainState,
                                                   create_train_state,
                                                   make_eval_step,
-                                                  make_train_step)
+                                                  make_train_step,
+                                                  state_tensors)
 from achelous_tpu_torch.utils.metrics import (compute_det_metrics, fast_hist,
                                               pc_mean_iou, per_class_iu,
                                               per_class_pa_recall,
@@ -103,15 +114,24 @@ class LossHistory:
 def batches_from(dataset: WaterScenesDataset, cfg: AchelousConfig,
                  batch_size: int, max_gt: int, shuffle: bool,
                  rng: np.random.RandomState,
-                 drop_last: bool = True) -> Iterable[dict]:
+                 drop_last: bool = True,
+                 sampler: Optional[DistributedSampler] = None,
+                 epoch: int = 0) -> Iterable[dict]:
     """Static-shape numpy batches.  drop_last=True as the reference's
     DataLoaders (train.py:589-603).  With drop_last=False the tail batch is
     padded to batch_size by wrapping around; `n_valid` says how many
     leading samples are real and `indices` carries the dataset indices, so
-    an evaluation scores every sample once."""
-    idx = np.arange(len(dataset))
-    if shuffle:
-        rng.shuffle(idx)
+    an evaluation scores every sample once.
+
+    With a `sampler`, the batches are this rank's shard of `epoch`
+    (`sampler.epoch_indices(epoch)`, `rng` not drawn) and `batch_size` is
+    the rank's own (reference DistributedSampler, train.py:576-580)."""
+    if sampler is not None:
+        idx = sampler.epoch_indices(epoch)
+    else:
+        idx = np.arange(len(dataset))
+        if shuffle:
+            rng.shuffle(idx)
     end = len(idx) - batch_size + 1 if drop_last else len(idx)
     for s in range(0, max(end, 0 if drop_last else 1), batch_size):
         take = idx[s:s + batch_size]
@@ -278,13 +298,42 @@ def set_rng_state(rng: np.random.RandomState, saved: dict):
                    saved["pos"], saved["has_gauss"], saved["cached"]))
 
 
+def _restore_rngs(rngs: dict, saved: dict, world: int, rank: int):
+    """Set this rank's host generators from a state's `data_rng`: the
+    flat form one process writes, or {"ranks": [...]} with an entry a rank.
+    Refuses a state written at another number of ranks."""
+    ranks = saved.get("ranks")
+    if (len(ranks) if ranks is not None else 1) != world:
+        raise ValueError(
+            f"the state carries the data generators of "
+            f"{len(ranks) if ranks is not None else 1} rank(s); resume it "
+            f"with as many, not {world}")
+    for name, r in rngs.items():
+        set_rng_state(r, (ranks[rank] if ranks is not None else saved)[name])
+
+
+def _broadcast_state(state: TrainState, group):
+    """Every rank takes rank 0's state: its tensors in place (`copy_`, so
+    the kernels' caches of packed weights rebuild), its counters and
+    data_rng."""
+    pdist.broadcast_(state_tensors(state), group)
+    held = [state.step, state.epoch, state.ema_updates, state.data_rng,
+            state.opt_state.get("count")]
+    torch.distributed.broadcast_object_list(held, src=0, group=group)
+    (state.step, state.epoch, state.ema_updates, state.data_rng,
+     count) = held
+    if count is not None:
+        state.opt_state["count"] = count
+
+
 def fit(cfg: AchelousConfig, tcfg: TrainConfig,
         train_ds: WaterScenesDataset, val_ds: Optional[WaterScenesDataset],
         log_dir: str = "logs", epochs: Optional[int] = None,
         eval_period: int = 10, save_period: int = 10,
         state: Optional[TrainState] = None, seed: int = 0,
         device: torch.device | str = torch.device("cuda"),
-        progress: Callable[[str], None] = print) -> TrainState:
+        progress: Callable[[str], None] = print,
+        group=None) -> TrainState:
     """A whole training run (reference train.py:637-703 + fit_one_epoch):
     for each epoch from `state.epoch`, the shuffled training batches
     through `make_train_step` at the epoch's learning rate, the backbone
@@ -298,27 +347,50 @@ def fit(cfg: AchelousConfig, tcfg: TrainConfig,
     augmentation, mosaic) in `state.data_rng`, which the checkpoints
     carry; a resumed run sets them back, so it draws the batches of an
     uninterrupted run.  A state without them (one converted from the JAX
-    package) replays the shuffles of the epochs it skips."""
+    package) replays the shuffles of the epochs it skips.
+
+    With a process `group` of W > 1 ranks (the JAX package's multi-process
+    mesh): rank 0's state is broadcast to every rank first; each rank
+    loads its `DistributedSampler` shard (the training one shuffled from
+    `seed`, the validation one in order) in batches of `tcfg.batch_size` /
+    W, and the steps and validation losses are the global batch's; the
+    online evaluation runs on rank 0 over the whole validation set, and
+    rank 0 alone writes the history and the checkpoints.  `data_rng`
+    holds every rank's generators (gathered on rank 0), so a resume at W
+    ranks gives each its own back; one at another W is refused.
+    `progress` is called on every rank."""
     epochs = epochs or tcfg.epochs
     if state is None:
         model = create_model(cfg, device, torch.Generator().manual_seed(seed),
                              train=True)
         state = create_train_state(model, cfg, tcfg, seed)
     dev = state.log_vars.device
+    world = pdist.world_size(group) if group is not None else 1
+    rank = pdist.rank(group) if world > 1 else 0
+    sampler = val_sampler = None
+    local_bs = tcfg.batch_size
+    if world > 1:
+        _broadcast_state(state, group)
+        local_bs = pdist.local_batch_size(tcfg.batch_size, world)
+        sampler = DistributedSampler(len(train_ds), world, rank, seed=seed)
+        if val_ds is not None:
+            val_sampler = DistributedSampler(len(val_ds), world, rank,
+                                             shuffle=False)
     init_lr, min_lr = scale_lr(tcfg.lr_init, tcfg.batch_size, tcfg.optimizer)
     lr_fn = get_lr_scheduler(tcfg.lr_decay, init_lr, min_lr, epochs)
-    train_step = make_train_step(cfg, tcfg)
-    eval_step = make_eval_step(cfg, tcfg)
-    history = LossHistory(log_dir)
-    ckpt = CheckpointManager(os.path.join(log_dir, "ckpt"))
+    train_step = make_train_step(cfg, tcfg, group)
+    eval_step = make_eval_step(cfg, tcfg, group)
+    history = ckpt = None
+    if rank == 0:
+        history = LossHistory(log_dir)
+        ckpt = CheckpointManager(os.path.join(log_dir, "ckpt"))
     rng = np.random.RandomState(seed)
     rngs = {"shuffle": rng, "train": train_ds.rng}
     if val_ds is not None:
         rngs["val"] = val_ds.rng
     if state.data_rng:
-        for name, r in rngs.items():
-            set_rng_state(r, state.data_rng[name])
-    else:
+        _restore_rngs(rngs, state.data_rng, world, rank)
+    elif sampler is None:
         for _ in range(state.epoch):
             rng.shuffle(np.arange(len(train_ds)))
 
@@ -326,8 +398,8 @@ def fit(cfg: AchelousConfig, tcfg: TrainConfig,
         lr = float(np.float32(lr_fn(epoch)))
         t0 = time.time()
         tr, n_b = None, 0
-        with prefetch(batches_from(train_ds, cfg, tcfg.batch_size,
-                                   tcfg.max_gt, True, rng),
+        with prefetch(batches_from(train_ds, cfg, local_bs, tcfg.max_gt,
+                                   True, rng, sampler=sampler, epoch=epoch),
                       depth=2) as batches:
             for batch in batches:
                 state, m = train_step(state, device_batch(batch, cfg, dev),
@@ -339,19 +411,29 @@ def fit(cfg: AchelousConfig, tcfg: TrainConfig,
         val = {}
         if val_ds is not None:
             vm, n_v = None, 0
-            for batch in batches_from(val_ds, cfg, tcfg.batch_size,
-                                      tcfg.max_gt, False, rng):
+            for batch in batches_from(val_ds, cfg, local_bs, tcfg.max_gt,
+                                      False, rng, sampler=val_sampler,
+                                      epoch=epoch):
                 vm = _add(vm, eval_step(state, device_batch(batch, cfg, dev)))
                 n_v += 1
             val = {f"val_{k}": v for k, v in _mean(vm, n_v).items()}
-            if (epoch + 1) % eval_period == 0 or epoch == epochs - 1:
+            if rank == 0 and ((epoch + 1) % eval_period == 0
+                              or epoch == epochs - 1):
                 val.update(evaluate_epoch(cfg, state, val_ds,
                                           batch_size=tcfg.batch_size))
         state.epoch = epoch + 1
-        state.data_rng = {name: rng_state(r) for name, r in rngs.items()}
-        history.append(epoch, **{"lr": lr, **tr, **val})
-        ckpt.save_epoch(epoch, state, tr.get("loss", 0.0),
-                        val.get("val_loss", tr.get("loss", 0.0)), save_period)
+        mine = {name: rng_state(r) for name, r in rngs.items()}
+        if world > 1:
+            ranks = [None] * world
+            torch.distributed.all_gather_object(ranks, mine, group=group)
+            state.data_rng = {"ranks": ranks}
+        else:
+            state.data_rng = mine
+        if rank == 0:
+            history.append(epoch, **{"lr": lr, **tr, **val})
+            ckpt.save_epoch(epoch, state, tr.get("loss", 0.0),
+                            val.get("val_loss", tr.get("loss", 0.0)),
+                            save_period)
         progress(f"epoch {epoch + 1}/{epochs} "
                  f"loss={tr.get('loss', float('nan')):.3f} "
                  f"val={val.get('val_loss', float('nan')):.3f} "

@@ -25,6 +25,21 @@ counter.  With `freeze_backbone` the update of the vision backbone
 (`image_radar_encoder.fpn.backbone.*`, flax's `backbone`) is multiplied
 by 0; its momentum trace still moves, as in optax.
 
+Across ranks (`make_train_step(..., group=...)`): each rank holds a
+replica of the state and its rows of the global batch, and the step is
+the single-process step on that global batch, as the JAX package computes
+it on a batch-sharded mesh.  BatchNorm and the losses take their
+statistics and sums over the group (`parallel.dist.batch_group`); every
+rank computes the global losses, so autograd gives each the gradient of W
+times the loss w.r.t. its own rows, and the mean of the ranks' gradients
+(one flat all-reduce) is the global gradient.  MGDA and CAGrad solve on
+each task's gradient so averaged.  With `grad_accum`, micro-batch m is
+the global batch's m-th slice, as in the JAX package's scan: the ranks
+exchange rows first (`jax_micro_layout`), and its BatchNorm statistics
+are taken across the ranks.  grad_norm, the metrics and the non-finite
+decision are computed from all-reduced values, the same on every rank,
+so every rank takes the same step and the EMA moves alike everywhere.
+
 The step's phases are named for torch.profiler (`train_step/forward`,
 `/losses`, `/backward`, `/update`; `trace_training.py` reads them).
 """
@@ -46,6 +61,7 @@ from achelous_tpu_torch.losses.multitask import (cagrad_combine, mgda_combine,
 from achelous_tpu_torch.losses.segmentation import (ce_loss, dice_loss,
                                                     focal_loss, pc_nll_loss)
 from achelous_tpu_torch.models.achelous import Achelous, forward_compute
+from achelous_tpu_torch.parallel import dist as pdist
 from achelous_tpu_torch.train.ema import ema_update
 
 BACKBONE = "image_radar_encoder.fpn.backbone."
@@ -110,6 +126,18 @@ class TrainState:
         return {n: t for n, t in
                 self.model.state_dict(keep_vars=True).items()
                 if n not in params}
+
+
+def state_tensors(state: TrainState) -> list[torch.Tensor]:
+    """Every tensor of the state: parameters, BatchNorm statistics,
+    log_vars, optimizer state, EMA (what `fit` broadcasts from rank 0)."""
+    out = list(state.model.state_dict(keep_vars=True).values())
+    out.append(state.log_vars)
+    for tree in (*state.opt_state.values(), state.ema_params,
+                 state.ema_batch_stats):
+        if isinstance(tree, dict):
+            out.extend(tree.values())
+    return out
 
 
 def decay_mask(model: nn.Module) -> set[str]:
@@ -210,10 +238,28 @@ def _apply_update(tcfg: TrainConfig, state: TrainState,
             params[n].add_(u, alpha=-lr)
 
 
-def make_train_step(cfg: AchelousConfig, tcfg: TrainConfig
+def jax_micro_layout(batch: dict, group, accum: int) -> dict:
+    """This rank's rows for `accum` micro-batches as the JAX package's scan
+    takes them from the global batch B (rank 0's rows, then rank 1's,
+    ...): micro-batch m is the global rows [m * B / a, (m + 1) * B / a),
+    and rank r's m-th slice becomes the r-th of W equal parts of it.  The
+    rows cross ranks (`pdist.gather_rows`)."""
+    full = pdist.gather_rows(batch, group)
+    w, r = pdist.world_size(group), pdist.rank(group)
+    mb = next(iter(full.values())).shape[0] // accum
+    share = mb // w
+    idx = torch.cat([torch.arange(m * mb + r * share,
+                                  m * mb + (r + 1) * share)
+                     for m in range(accum)])
+    return {k: v[idx.to(v.device)] for k, v in full.items()}
+
+
+def make_train_step(cfg: AchelousConfig, tcfg: TrainConfig, group=None
                     ) -> Callable[..., tuple[TrainState, dict]]:
     """train_step(state, batch, lr, freeze_backbone=False) ->
-    (state, metrics), the state updated in place.
+    (state, metrics), the state updated in place.  With a process `group`
+    of more than one rank, `batch` is this rank's rows of the global batch
+    and the step is the global batch's (module docstring).
 
     batch (data/synthetic.py's layout): image [B,3,R,R], radar [B,3,R,R],
     pc [B,N,C], gt_boxes [B,G,4], gt_classes [B,G], gt_mask [B,G],
@@ -251,6 +297,8 @@ def make_train_step(cfg: AchelousConfig, tcfg: TrainConfig
         if b % a:
             raise ValueError(f"batch size {b} not divisible by "
                              f"grad_accum {a}")
+        if a > 1 and pdist.current_group() is not None:
+            batch = jax_micro_layout(batch, group, a)
         sums = {k: torch.zeros((), dtype=torch.float32,
                                device=state.log_vars.device) for k in METRICS}
         for i in range(a):
@@ -282,6 +330,9 @@ def make_train_step(cfg: AchelousConfig, tcfg: TrainConfig
                 (torch.zeros_like(p) if g is None else g).reshape(-1)
                 for p, g in zip(model_params, gs)]))
         task_grads = torch.stack(rows)
+        if pdist.current_group() is not None:
+            with record_function("train_step/all_reduce"):
+                pdist.average_([task_grads], group)
         if tcfg.mtl == "mgda":
             combined = mgda_combine(task_grads, "l2",
                                     torch.stack([ls, lw, ld, lp]).detach())
@@ -305,10 +356,14 @@ def make_train_step(cfg: AchelousConfig, tcfg: TrainConfig
             p.grad = None
         stats = state.batch_stats()
         before = {n: t.detach().clone() for n, t in stats.items()}
-        if tcfg.mtl in ("mgda", "cagrad"):
-            grads, metrics = surgery_grads(state, params, batch)
-        else:
-            grads, metrics = accum_grads(state, params, batch)
+        with pdist.batch_group(group):
+            if tcfg.mtl in ("mgda", "cagrad"):
+                grads, metrics = surgery_grads(state, params, batch)
+            else:
+                grads, metrics = accum_grads(state, params, batch)
+                if pdist.current_group() is not None:
+                    with record_function("train_step/all_reduce"):
+                        pdist.average_(grads.values(), group)
         grad_norm = torch.sqrt(sum(
             g.float().square().sum() for g in grads.values()))
         step_ok = bool(torch.isfinite(metrics["loss"])
@@ -340,9 +395,10 @@ def make_train_step(cfg: AchelousConfig, tcfg: TrainConfig
     return train_step
 
 
-def make_eval_step(cfg: AchelousConfig, tcfg: TrainConfig):
+def make_eval_step(cfg: AchelousConfig, tcfg: TrainConfig, group=None):
     """eval_step(state, batch) -> the validation losses, BatchNorm on its
-    running statistics (reference utils_fit.py:216-309)."""
+    running statistics (reference utils_fit.py:216-309); with a process
+    `group`, the losses of the global batch whose rows `batch` holds."""
     det_loss_fn = YoloXLoss(cfg.num_det)
 
     @torch.no_grad()
@@ -355,8 +411,9 @@ def make_eval_step(cfg: AchelousConfig, tcfg: TrainConfig):
                                       batch["pc"])
         finally:
             model.train(was_training)
-        ls, lw, ld, lp = compute_losses(cfg, tcfg, det_loss_fn, outputs,
-                                        batch)
+        with pdist.batch_group(group):
+            ls, lw, ld, lp = compute_losses(cfg, tcfg, det_loss_fn, outputs,
+                                            batch)
         return {"loss": ls + lw + ld + lp, "loss_det": ld, "loss_seg": ls,
                 "loss_wl": lw, "loss_pc": lp}
 

@@ -24,6 +24,10 @@ package's msgpack with its `__achelous_meta__` stamp), read back with
 `weights_only=True`.  meta["provenance"] == "torch-transplant" marks
 weights trained with unbounded deformable offsets (predict.py).
 
+The 3-task Achelous3T (`create_model(..., with_pc=False)`) has no
+`pc_seg_model`: its state dict takes the entries of the JAX package's
+`achelous_mapping(..., with_pc=False)`, whose variables have no `pc_seg`.
+
 `load_train_state_from_jax` carries a whole JAX `TrainState` (params and
 batch_stats, log_vars, the EMA, the optax momentum trace or Adam moments,
 the counters) into the port's `TrainState`, through the same entries.

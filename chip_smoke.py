@@ -87,6 +87,36 @@ and the configurations of the JAX package that no phase above builds:
         against its own train form, within DEPLOY_TOL, their kernels a
         frame side by side
 
+and then the port across ranks and devices, and the 3-task model:
+
+    D1  two ranks of the EN-GDF-PN-S0 train step (`parallel.dist`,
+        spawned by tests/torch_port_ranks.py's `run_ranks`; NCCL with a
+        GPU a rank where the machine shows two, else both ranks on
+        cuda:0 over gloo): `gather_rows` (grad_accum's row exchange) on
+        the card's tensors; (a) float32, TF32 off, global batch
+        STEP_BATCH, against the single-process step on the card from
+        the same weights under T2's gate (the spread read from the
+        single process's step on the batch reversed), both ranks'
+        states equal; (b) bf16 at global batch
+        TRAIN_BATCH, D1_STEPS steps: each rank's ms a step, the same rows
+        stepped without the group (the collectives' share), peak memory,
+        K1 x4 and K2 x4 a step, the first step's launches held against
+        the plain versions
+    D2  `fit` across the same two ranks on a tree like F1's (global batch
+        FIT_BATCH): FIT_EPOCHS epochs, rank 0 writing the history and the
+        checkpoints, then a resume from rank 0's epoch-1 checkpoint;
+        both ranks' states equal after each run; rank 0's launches held
+        against the plain versions (D1 and D2 run in one spawn)
+    P2  `AchelousPredictor.sharded_infer` at batch P2_BATCH over two
+        shards (cuda:0 twice on one GPU) for EN-GDF-PN-S0 (K1, K2) and
+        EF-GDF-PN2-S0 (K1-K4): float32 against the single request on the
+        whole batch (survivors equal, floats within P2_TOL), bf16 maps
+        within the serving gate; every launch held against the plain
+        version; both timed
+    C3  one request of the 3-task Achelous3T (`entry(..., with_pc=False)`)
+        at 320x320, bf16, batch 1, K1 x4 and K2 x4, against float32 plain
+        on the CPU within the serving gate
+
   K2 is also held against its plain version on the
 exact route (band None) at C = 3, 320^2, and K4 at batch 3; K2's and K4's
 launch plans are logged.  K1 is timed as its single launch on weights packed
@@ -284,6 +314,22 @@ X1_NODES = {"fused_radarconv": 4, "deform_samples": 4}
 # peak rate for the inputs' type (NVIDIA's H100 SXM data sheet at 700 W:
 # 3.35 TB/s; 989 TFLOP/s bf16 dense, 67 TFLOP/s float32 outside the tensor
 # cores).
+# D1/D2: ranks of the data-parallel runs; D1's timed bf16 steps (the
+# first a warm-up) and its steps of the same rows without the group
+DIST_WORLD = 2
+D1_STEPS = 5
+D1_LOCAL_STEPS = 3
+# P2: sharded_infer's batch, its paths, float32 sharded vs single request
+# (|diff| / (|ref| + 1): the shards' convolutions may pick other
+# algorithms than the whole batch's, ~1e-6 apart)
+P2_BATCH, P2_RES = 8, 320
+P2_PATHS = (
+    ("EN-GDF-PN-S0", "en", "pn", {"fused_radarconv": 4, "deform_samples": 4}),
+    ("EF-GDF-PN2-S0", "ef", "pn2",
+     {"fused_radarconv": 4, "deform_samples": 4, "fused_bias_attention": 4,
+      "farthest_point_sample": 4}))
+P2_TOL = 1e-5
+P2_CONF = 0.05          # low enough that random weights leave detections
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 
@@ -812,16 +858,17 @@ def serve_path(dev, label, want_rose, records=None, n=REQUESTS, **path):
     r, k = cfg.resolution, cfg.num_det
     worst = {}
     with torch.inference_mode():
-        for q, dq, (dets, sem, lane, pc) in zip(reqs, dev_reqs, outs):
+        for q, dq, (dets, sem, lane, *pc) in zip(reqs, dev_reqs, outs):
             det = model.det_head(model.image_radar_encoder(*dq[:2])[0])
             # the reference sees the same bf16-rounded inputs
-            want_det, want_sem, want_lane, want_pc = ref_model(
+            want_det, want_sem, want_lane, *want_pc = ref_model(
                 *(t.to(cfg.dtype).float() for t in q))
-            got = {"det": det, "sem": sem, "lane": lane, "pc": pc}
-            want = {"det": want_det, "sem": want_sem, "lane": want_lane,
-                    "pc": want_pc}
-            shapes = {"sem": (1, cfg.num_seg, r, r), "lane": (1, 2, r, r),
-                      "pc": (1, cfg.pc_points, cfg.pc_classes)}
+            got = {"det": det, "sem": sem, "lane": lane}
+            want = {"det": want_det, "sem": want_sem, "lane": want_lane}
+            shapes = {"sem": (1, cfg.num_seg, r, r), "lane": (1, 2, r, r)}
+            if model.with_pc:         # Achelous3T (C3) has no point cloud
+                got["pc"], want["pc"] = pc[0], want_pc[0]
+                shapes["pc"] = (1, cfg.pc_points, cfg.pc_classes)
             for name, s in shapes.items():
                 if tuple(got[name].shape) != s:
                     raise AssertionError(f"{name} shape {tuple(got[name].shape)}"
@@ -834,9 +881,7 @@ def serve_path(dev, label, want_rose, records=None, n=REQUESTS, **path):
             if dets.boxes.shape != (1, 100, 4) or not bool(
                     torch.isfinite(dets.boxes).all()):
                 raise AssertionError("detections: bad shape or non-finite")
-            pairs = [("sem", got["sem"], want["sem"]),
-                     ("lane", got["lane"], want["lane"]),
-                     ("pc", got["pc"], want["pc"])]
+            pairs = [(name, got[name], want[name]) for name in shapes]
             pairs += [(f"det{i}", g, w) for i, (g, w) in
                       enumerate(zip(got["det"], want["det"]))]
             for name, g, w in pairs:
@@ -2073,6 +2118,434 @@ def c2_phase(dev):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# D1 the train step across two ranks, D2 `fit` across two ranks, P2
+# sharded_infer, C3 the 3-task Achelous3T
+# ---------------------------------------------------------------------------
+
+
+def dist_layout():
+    """(backend, each rank's device): NCCL with a GPU a rank where the
+    machine shows two, else both ranks on cuda:0 over gloo (NCCL refuses
+    two ranks on one device)."""
+    if torch.cuda.device_count() >= DIST_WORLD:
+        return "nccl", [f"cuda:{r}" for r in range(DIST_WORLD)]
+    return "gloo", ["cuda:0"] * DIST_WORLD
+
+
+def rank_rows(arrays, rank, world):
+    """This rank's rows of a global batch (rank 0's first, then rank 1's)."""
+    lb = len(arrays["image"]) // world
+    return {k: v[rank * lb:(rank + 1) * lb] for k, v in arrays.items()}
+
+
+def same_on_every_rank(tensors, group) -> bool:
+    """Whether every rank holds rank 0's values of `tensors`."""
+    import torch.distributed as dist
+    flat = torch.cat([t.detach().float().reshape(-1) for t in tensors])
+    ref = flat.clone()
+    dist.broadcast(ref, src=0, group=group)
+    same = torch.tensor([float(torch.equal(flat, ref))], device=flat.device)
+    dist.all_reduce(same, group=group)
+    return int(same.item()) == dist.get_world_size(group)
+
+
+def d1_rank(rank, world, devices):
+    """One rank of D1: (a) one float32 step (TF32 off) of EN-GDF-PN-S0 on
+    its rows of the global batch of STEP_BATCH; (b) D1_STEPS bf16 steps on
+    its rows of global batches of TRAIN_BATCH (the first step's launches
+    held against the plain versions), then D1_LOCAL_STEPS steps of the
+    same rows without the group, the step's compute without its
+    collectives.  Returns the metrics, rank 0's parameter changes of (a),
+    whether both ranks' states are equal, the times and the launches."""
+    import torch.distributed as dist
+    from achelous_tpu_torch.core.config import AchelousConfig
+    from achelous_tpu_torch.data.synthetic import synthetic_arrays, to_batch
+    from achelous_tpu_torch.parallel.dist import gather_rows
+    from achelous_tpu_torch.train.train_state import (TrainConfig,
+                                                      create_train_state,
+                                                      make_train_step,
+                                                      state_tensors)
+    dev = torch.device(devices[rank])
+    torch.cuda.set_device(dev)
+    group = dist.group.WORLD
+    w = wrappers()
+    out = {}
+
+    cfg = AchelousConfig(resolution=TRAIN_RES)
+    tcfg = TrainConfig()
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    state = create_train_state(train_model(cfg, dev), cfg, tcfg)
+    before = {n: p.detach().clone()
+              for n, p in state.model.named_parameters()}
+    arrays = synthetic_arrays(cfg, STEP_BATCH, tcfg.max_gt, seed=7)
+    state, m = make_train_step(cfg, tcfg, group)(
+        state, to_batch(rank_rows(arrays, rank, world), dev), 0.01)
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32
+    out["f32_metrics"] = {k: float(v) for k, v in m.items()}
+    out["f32_same"] = same_on_every_rank(state_tensors(state), group)
+    # grad_accum's row exchange, on the backend's device tensors
+    mine = {"f": torch.arange(6.0, device=dev).view(3, 2) + 6 * rank,
+            "b": torch.arange(3, device=dev) % world == rank}
+    got = gather_rows(mine, group)
+    if not (torch.equal(got["f"].flatten().cpu(), torch.arange(6.0 * world))
+            and got["b"].tolist() == [i % world == r for r in range(world)
+                                      for i in range(3)]):
+        raise AssertionError(f"D1 rank {rank}: gather_rows gave {got}")
+    if rank == 0:
+        out["f32_changes"] = {
+            n: (p.detach() - before[n]).cpu().numpy()
+            for n, p in state.model.named_parameters()}
+    del state, before
+
+    cfg = AchelousConfig(resolution=TRAIN_RES, dtype=torch.bfloat16)
+    tcfg = TrainConfig(batch_size=TRAIN_BATCH)
+    batches = [to_batch(rank_rows(synthetic_arrays(
+        cfg, TRAIN_BATCH, tcfg.max_gt, seed=100 + i), rank, world), dev)
+        for i in range(D1_STEPS)]
+    state = create_train_state(train_model(cfg, dev), cfg, tcfg)
+    steps = {"group": make_train_step(cfg, tcfg, group),
+             "alone": make_train_step(cfg, tcfg)}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, records, totals = {"group": [], "alone": []}, [], {}
+    for kind, n in (("group", D1_STEPS), ("alone", D1_LOCAL_STEPS)):
+        dist.barrier(group)
+        for i in range(n):
+            for f in w.values():
+                f.launches = 0
+            t0, t1 = (torch.cuda.Event(enable_timing=True)
+                      for _ in range(2))
+            with (on_path_inputs(records) if kind == "group" and i == 0
+                  else contextlib.nullcontext()):
+                t0.record()
+                state, m = steps[kind](state, batches[i], 0.01)
+                t1.record()
+                torch.cuda.synchronize()
+            times[kind].append(t0.elapsed_time(t1))
+            counts = {n_: f.launches for n_, f in w.items() if f.launches}
+            if counts != TRAIN_LAUNCHES:
+                raise AssertionError(f"D1 rank {rank} {kind} step {i}: "
+                                     f"launches {counts}")
+            if kind == "group":
+                add_counts(totals, counts)
+            vals = {k: float(v) for k, v in m.items()}
+            if m["skipped_nonfinite"] or not all(
+                    np.isfinite(list(vals.values()))):
+                raise AssertionError(f"D1 rank {rank} step {i}: {vals}")
+        if kind == "group":
+            out["bf16_same"] = same_on_every_rank(state_tensors(state), group)
+    out["peak"] = torch.cuda.max_memory_allocated(dev)
+    out["ms"] = float(np.median(times["group"][1:]))
+    out["alone_ms"] = float(np.median(times["alone"]))
+    out["launches"] = totals
+    out["bf16_metrics"] = {k: float(v) for k, v in m.items()}
+    check_on_path(f"D1 rank {rank} bf16 step 0", records)
+    return out
+
+
+def d1_check(dev, ranks):
+    """D1 from the ranks' results (`d1_rank`): (a) the float32 step at
+    global batch STEP_BATCH against the single-process step on the card
+    from the same weights, under T2's gate (the single process's own
+    spread read from its step on the batch reversed); (b) each rank's
+    bf16 step at global batch TRAIN_BATCH, logged.  Returns the ranks'
+    K1/K2 launches in (b)."""
+    from achelous_tpu_torch.core.config import AchelousConfig
+    from achelous_tpu_torch.data.synthetic import synthetic_arrays, to_batch
+    from achelous_tpu_torch.train.train_state import TrainConfig
+    cfg = AchelousConfig(resolution=TRAIN_RES)
+    tcfg = TrainConfig()
+    model = train_model(cfg, "cpu")
+    arrays = synthetic_arrays(cfg, STEP_BATCH, tcfg.max_gt, seed=7)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    want, wm, _ = one_step(model, cfg, tcfg, arrays, dev)
+    rev, _, _ = one_step(model, cfg, tcfg, arrays, dev, reverse=True)
+    (torch.backends.cuda.matmul.allow_tf32,
+     torch.backends.cudnn.allow_tf32) = tf32
+    zero = zero_gradient_biases(model.to(dev), to_batch(
+        synthetic_arrays(cfg, 2, tcfg.max_gt, seed=7), dev))
+    got, gm = ranks[0]["f32_changes"], ranks[0]["f32_metrics"]
+    if not all(r["f32_same"] and r["bf16_same"] for r in ranks) or \
+            ranks[1]["f32_metrics"] != gm:
+        raise AssertionError("D1: the ranks' states or metrics differ")
+    rel = {k: abs(gm[k] - wm[k]) / abs(wm[k]) for k in
+           ("loss", "loss_det", "loss_seg", "loss_wl", "loss_pc",
+            "grad_norm")}
+    rows = {n: (float((torch.from_numpy(got[n]) - d).norm()),
+                float(d.norm()), float((rev[n] - d).norm()))
+            for n, d in want.items()}
+
+    def ratio(n):
+        e, c, f = rows[n]
+        bound = STEP_REL * c + STEP_FLOOR * f
+        return e / bound if bound else (float("inf") if e else 0.0)
+    top = max(float(d.abs().max()) for d in want.values())
+    diff, name = max((float((torch.from_numpy(got[n]) - d).abs().max()), n)
+                     for n, d in want.items())
+    held = sorted((n for n in rows if n not in zero), key=ratio,
+                  reverse=True)
+    log(f"D1 (a) float32 global batch {STEP_BATCH}, two ranks vs one "
+        f"process on the card, relative: " + ", ".join(
+            f"{k} {v:.3g}" for k, v in rel.items()) + f"; the largest "
+        f"parameter difference {diff:.4g} ({name}), {diff / top:.3g} of "
+        f"the largest change (bound {STEP_REL}); worst of the other "
+        f"{len(held)} tensors against {STEP_REL} of their own change + "
+        f"{STEP_FLOOR} x the single process's spread (batch reversed): "
+        + ", ".join(f"{n} {ratio(n):.3g}" for n in held[:3])
+        + "; both ranks' states equal")
+    if gm["skipped_nonfinite"] or max(rel.values()) > STEP_LOSS_RTOL or \
+            diff > STEP_REL * top or ratio(held[0]) > 1.0:
+        raise AssertionError("D1 (a): the two-rank step is outside T2's "
+                             "gate")
+    launches = {}
+    for r, res in enumerate(ranks):
+        add_counts(launches, res["launches"])
+        log(f"D1 (b) rank {r} bf16 global batch {TRAIN_BATCH} "
+            f"({TRAIN_BATCH // DIST_WORLD} a rank) {TRAIN_RES}x{TRAIN_RES}: "
+            f"{res['ms']:.2f} ms/step "
+            f"(median of steps 2-{D1_STEPS}, CUDA events), the same rows "
+            f"without the group {res['alone_ms']:.2f} ms/step, so the "
+            f"collectives and waits take "
+            f"{1 - res['alone_ms'] / res['ms']:.3f} of the step; peak "
+            f"memory {res['peak'] / 2**30:.2f} GiB; launches over "
+            f"{D1_STEPS} steps {res['launches']} ({TRAIN_LAUNCHES} a step)")
+    return launches
+
+
+def d2_rank(rank, world, devices, root):
+    """One rank of D2: `fit` across the group on the tree at `root` for
+    FIT_EPOCHS epochs into <root>/d2, rank 0 writing; then a resume from
+    rank 0's epoch-1 checkpoint into <root>/d2_resume.  Rank 0 holds
+    the kernels' launches of the first run against the plain versions."""
+    import torch.distributed as dist
+    from achelous_tpu_torch.core.config import AchelousConfig
+    from achelous_tpu_torch.data.waterscenes import (WaterScenesDataset,
+                                                     WaterScenesPaths)
+    from achelous_tpu_torch.models.achelous import create_model
+    from achelous_tpu_torch.train.checkpoints import CheckpointManager
+    from achelous_tpu_torch.train.loop import fit
+    from achelous_tpu_torch.train.train_state import (TrainConfig,
+                                                      create_train_state,
+                                                      state_tensors)
+    dev = torch.device(devices[rank])
+    torch.cuda.set_device(dev)
+    group = dist.group.WORLD
+    cfg = AchelousConfig(resolution=TRAIN_RES, dtype=torch.bfloat16)
+    tcfg = TrainConfig(batch_size=FIT_BATCH, epochs=FIT_EPOCHS)
+    w = wrappers()
+    out = {"counts": {}, "msgs": {}, "secs": {}}
+    records = []
+    for name in ("d2", "d2_resume"):
+        train_ds = WaterScenesDataset(cfg, WaterScenesPaths.under(root))
+        val_ds = WaterScenesDataset(cfg,
+                                    WaterScenesPaths.under(root, "val.txt"))
+        state = None
+        if name == "d2_resume":
+            ckpt = CheckpointManager(os.path.join(root, "d2", "ckpt"))
+            state = create_train_state(create_model(cfg, dev, train=True),
+                                       cfg, tcfg)
+            state = ckpt.restore(ckpt.periodic()[0], state)
+            if state.epoch != 1 or len(state.data_rng["ranks"]) != world:
+                raise AssertionError(f"D2 rank {rank}: resumed epoch "
+                                     f"{state.epoch}")
+        msgs = []
+        for f in w.values():
+            f.launches = 0
+        dist.barrier(group)
+        t0 = time.perf_counter()
+        with (on_path_inputs(records) if name == "d2" and rank == 0
+              else contextlib.nullcontext()):
+            state = fit(cfg, tcfg, train_ds, val_ds,
+                        log_dir=os.path.join(root, name), save_period=1,
+                        state=state, device=dev, progress=msgs.append,
+                        group=group)
+            torch.cuda.synchronize()
+        out["secs"][name] = time.perf_counter() - t0
+        add_counts(out["counts"], {n: f.launches for n, f in w.items()
+                                   if f.launches})
+        out["msgs"][name] = msgs
+        if state.epoch != FIT_EPOCHS or not same_on_every_rank(
+                state_tensors(state), group):
+            raise AssertionError(f"D2 rank {rank} {name}: epoch "
+                                 f"{state.epoch}, or the ranks' states "
+                                 f"differ")
+    if rank == 0:
+        check_on_path("D2 fit rank 0", records)
+    return out
+
+
+def d2_check(root, ranks, backend):
+    """D2 from the ranks' results (`d2_rank`) and rank 0's files under
+    `root`: the histories of the run and of the resume, the checkpoints.
+    Returns the ranks' kernel launches."""
+    hist = {name: [json.loads(line) for line in
+                   open(os.path.join(root, name, "history.jsonl"))]
+            for name in ("d2", "d2_resume")}
+    ckpts = sorted(os.listdir(os.path.join(root, "d2", "ckpt")))
+    if [h["epoch"] for h in hist["d2"]] != list(range(FIT_EPOCHS)) or \
+            [h["epoch"] for h in hist["d2_resume"]] != [FIT_EPOCHS - 1] or \
+            any("mAP50" not in h[-1] for h in hist.values()) or not all(
+                np.isfinite(x["loss"]) for h in hist.values() for x in h):
+        raise AssertionError(f"D2 histories {hist}")
+    launches = {}
+    for r, res in enumerate(ranks):
+        add_counts(launches, res["counts"])
+        log(f"D2 rank {r}: fit {res['secs']['d2']:.1f} s, resume "
+            f"{res['secs']['d2_resume']:.1f} s; "
+            + "; ".join(res["msgs"]["d2"] + res["msgs"]["d2_resume"])
+            + f"; launches {res['counts']}")
+    last = hist["d2"][-1]
+    log(f"D2 over {backend}: history.jsonl of rank 0 epochs "
+        f"{[h['epoch'] for h in hist['d2']]}, resumed "
+        f"{[h['epoch'] for h in hist['d2_resume']]}; checkpoints {ckpts}; "
+        f"both ranks' states equal after each run; last: " + ", ".join(
+            f"{k} {last[k]:.4g}" for k in ("loss", "val_loss", "mAP50",
+                                           "miou_sem", "n_images")))
+    return launches
+
+
+def dist_rank(rank, world, devices, root):
+    """One rank of D1 then D2, in one process (one spawn, one warm-up)."""
+    return {"d1": d1_rank(rank, world, devices),
+            "d2": d2_rank(rank, world, devices, root)}
+
+
+def dist_phases(dev):
+    """D1 and D2: two ranks on the card (`dist_layout`), spawned once;
+    D2's tree written first, like F1's.  Returns the ranks' launches."""
+    import tempfile
+    from achelous_tpu_torch.data.example import write_tree
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from torch_port_ranks import run_ranks     # the CPU tests' launcher
+    backend, devices = dist_layout()
+    log(f"D1/D2: {DIST_WORLD} ranks over {backend} on {devices} "
+        f"({torch.cuda.device_count()} GPU visible)")
+    with tempfile.TemporaryDirectory() as root:
+        write_tree(root, FIT_TRAIN + FIT_VAL, FIT_SIZE, points=400,
+                   val=FIT_VAL)
+        t0 = time.perf_counter()
+        ranks = run_ranks(dist_rank, DIST_WORLD, devices, root,
+                          backend=backend)
+        log(f"D1/D2: the ranks ran in {time.perf_counter() - t0:.1f} s "
+            f"(spawn, imports and the first step's set-up included)")
+        launches = d1_check(dev, [r["d1"] for r in ranks])
+        add_counts(launches, d2_check(root, [r["d2"] for r in ranks],
+                                      backend))
+    return launches
+
+
+def p2_phase(dev):
+    """P2: `AchelousPredictor.sharded_infer` over two shards on the card
+    ([cuda:0, cuda:0] on one GPU, else the first two), batch P2_BATCH, on
+    EN-GDF-PN-S0 and EF-GDF-PN2-S0 (K1-K4): float32 (TF32 off) against the
+    single request on the whole batch, discrete outputs equal and floats
+    within P2_TOL; bf16 within the serving gate; every launch held against
+    the plain version; both timed.  Returns the sharded calls' launches."""
+    from achelous_tpu_torch.entry import (perturb_attention,
+                                          perturb_deform_convs,
+                                          serving_config)
+    from achelous_tpu_torch.predict import AchelousPredictor
+    shards = [dev] * DIST_WORLD
+    if torch.cuda.device_count() >= DIST_WORLD:
+        shards = [torch.device("cuda", i) for i in range(DIST_WORLD)]
+    launches = {}
+    rng = np.random.RandomState(300)
+    arrays = [rng.rand(P2_BATCH, 3, P2_RES, P2_RES),
+              rng.rand(P2_BATCH, 3, P2_RES, P2_RES), rng.rand(P2_BATCH, 512, 5)]
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    for label, backbone, pc_model, want in P2_PATHS:
+        records = []
+        for dtype in (torch.float32, torch.bfloat16):
+            cfg = serving_config(dtype, P2_RES, backbone, pc_model)
+            pred = AchelousPredictor(cfg, confidence=P2_CONF, nms_iou=0.5,
+                                     device=dev)
+            perturb_deform_convs(pred.model)
+            perturb_attention(pred.model)
+            args = [torch.from_numpy(a.astype(np.float32)).to(dev, dtype)
+                    for a in arrays]
+            fp32 = dtype == torch.float32
+            if fp32:
+                torch.backends.cuda.matmul.allow_tf32 = False
+                torch.backends.cudnn.allow_tf32 = False
+            sharded = pred.sharded_infer(shards)
+            single = pred.infer(*args)
+            got, counts = counted(lambda: sharded(*args))
+            with on_path_inputs(records):
+                sharded(*args)
+            rose = {n: c // DIST_WORLD for n, c in counts.items()}
+            if rose != want:
+                raise AssertionError(f"P2 {label}: launches a shard {rose}, "
+                                     f"want {want}")
+            add_counts(launches, counts)
+            # bf16: the maps (probabilities, point classes, head maps);
+            # a survivor near the threshold may flip, so the detections'
+            # padded tensors are compared in float32 only
+            g_flat = [*got[1:4], *got[4]]
+            w_flat = [*single[1:4], *single[4]]
+            if fp32:
+                g_flat, w_flat = [*got[0], *g_flat], [*single[0], *w_flat]
+            floats = [(g, w_) for g, w_ in zip(g_flat, w_flat)
+                      if g.is_floating_point()]
+            if fp32:
+                exact = all(torch.equal(g, w_) for g, w_ in
+                            zip(g_flat, w_flat) if not g.is_floating_point())
+                err = max(float(((g - w_).abs() / (w_.abs() + 1)).max())
+                          for g, w_ in floats)
+                if not exact or err > P2_TOL:
+                    raise AssertionError(f"P2 {label} float32: discrete "
+                                         f"equal {exact}, float err {err}")
+            else:
+                err = max(serving_error(g, w_) for g, w_ in floats)
+                if err > MAIN_PATH_TOL:
+                    raise AssertionError(f"P2 {label} bf16: {err}")
+            ms_sharded = cuda_ms(lambda: sharded(*args), iters=5, warmup=2)
+            ms_single = cuda_ms(lambda: pred.infer(*args), iters=5, warmup=2)
+            (torch.backends.cuda.matmul.allow_tf32,
+             torch.backends.cudnn.allow_tf32) = tf32
+            log(f"P2 {label} {str(dtype).split('.')[-1]} batch {P2_BATCH} "
+                f"over {[str(d) for d in shards]}: sharded vs the single "
+                f"request, " + (f"discrete outputs equal, floats within "
+                                f"{err:.3g} (|diff| / (|ref| + 1))" if fp32
+                                else f"maps within {err:.3g} by the "
+                                f"serving gate's measure") + f"; "
+                f"{int(got[0].valid.sum())} detections sharded, "
+                f"{int(single[0].valid.sum())} single, "
+                f"{int((got[0].valid == single[0].valid).all(-1).sum())} of "
+                f"{P2_BATCH} images with the same survivors; launches "
+                f"{counts}; {ms_sharded:.3f} ms a "
+                f"sharded batch, {ms_single:.3f} ms a single request")
+            del pred, sharded, single, got
+            torch.cuda.empty_cache()
+        check_on_path(f"P2 {label}", records)
+    return launches
+
+
+def c3_phase(dev):
+    """C3: one Achelous3T (the 3-task model, `entry(..., with_pc=False)`)
+    request at 320^2, bf16, batch 1, through K1 x4 and K2 x4, against
+    float32 plain on the CPU within the serving gate; its launches held
+    against the plain version.  Returns its launches."""
+    records = []
+    counts, model, fn = serve_path(
+        dev, "EN-GDF-PN-S0 Achelous3T", TRAIN_LAUNCHES, records, n=1,
+        with_pc=False)
+    if model.with_pc or hasattr(model, "pc_seg_model"):
+        raise AssertionError("C3 built the point-cloud branch")
+    check_on_path("C3 Achelous3T", records)
+    return counts
+
+
 def main():
     # cuBLAS reads this when it starts; grads_of's deterministic mode
     # needs it
@@ -2124,6 +2597,14 @@ def main():
     add_counts(launches, sweep_phase(dev))
     torch.cuda.empty_cache()
     add_counts(launches, c2_phase(dev))
+    torch.cuda.empty_cache()
+    with phase("D1 and D2 across two ranks"):
+        add_counts(launches, dist_phases(dev))
+    with phase("P2 sharded_infer"):
+        add_counts(launches, p2_phase(dev))
+    torch.cuda.empty_cache()
+    with phase("C3 Achelous3T"):
+        add_counts(launches, c3_phase(dev))
     rows = []
     for name, source, replaces in (
             ("fused_radarconv", "achelous_tpu_torch/csrc/deform.cu",
