@@ -19,9 +19,16 @@ layout says, the module above it names that kind in `FLAX_KIND`, keyed by
 the parameter's or a child module's name ("" for everything beneath the
 module): "vector" (a rank-1 leaf that torch shapes [1,C,1,1] or [C,1,1]),
 "dense" (an `nn.Dense` kernel held by a torch `Conv1d` / `Conv2d`) or
-"param" (a plain parameter held by a torch conv or linear layer).
-`flax_kinds` reads them; weight decay (train/train_state.py `decay_mask`)
-skips the vectors and `weights_init` keeps the dense and plain weights.
+"param" (a plain parameter held by a torch conv or linear layer) or
+"stacked" (a `ModuleList` of identical layers whose flax parameters are
+one leaf each, stacked on a leading [depth] axis by `nn.scan`: MobileViT's
+transformer).  `flax_kinds` reads them; weight decay
+(train/train_state.py `decay_mask`) skips the vectors and takes every
+stacked parameter (a stacked bias or norm is of rank 2 in flax), and
+`weights_init` keeps the dense and plain weights and re-draws each stacked
+`nn.Linear` weight as one slice of its flax kernel [depth, in, out], a
+rank-3 leaf: fans over depth * in and out * depth, and `orthogonal`
+orthogonalises the [depth * in, out] matrix across the stack.
 """
 from __future__ import annotations
 
@@ -78,12 +85,33 @@ def flax_kinds(model: nn.Module) -> dict[str, str]:
 
 
 def flax_conv_weights(model: nn.Module) -> list[str]:
-    """Names of the conv weights whose flax counterpart is a conv kernel of
-    rank >= 3 (those `weights_init` re-draws), in module order."""
+    """Names of the weights whose flax counterpart is a kernel of rank >= 3
+    (those `weights_init` re-draws: conv kernels and the stacked Dense
+    kernels), in module order."""
     kinds = flax_kinds(model)
-    return [f"{name}.weight" for name, m in model.named_modules()
-            if isinstance(m, (nn.Conv1d, nn.Conv2d))
-            and f"{name}.weight" not in kinds]
+    out = []
+    for name, m in model.named_modules():
+        kind = kinds.get(f"{name}.weight")
+        if (isinstance(m, (nn.Conv1d, nn.Conv2d)) and kind is None
+                or isinstance(m, nn.Linear) and kind == "stacked"):
+            out.append(f"{name}.weight")
+    return out
+
+
+def stacked_weights(model: nn.Module) -> list[list[str]]:
+    """For each `nn.Linear` of a "stacked" layer list, the names of its
+    weight in every layer, in layer order (one flax kernel each)."""
+    out = []
+    for mname, m in model.named_modules():
+        for key, kind in getattr(m, "FLAX_KIND", {}).items():
+            if kind != "stacked":
+                continue
+            layers = m.get_submodule(key)
+            prefix = ".".join(p for p in (mname, key) if p)
+            out += [[f"{prefix}.{t}.{sub}.weight" for t in range(len(layers))]
+                    for sub, lin in layers[0].named_modules()
+                    if isinstance(lin, nn.Linear)]
+    return out
 
 
 def _scheme(shape, init_type: str, gain: float,
@@ -115,9 +143,10 @@ def _scheme(shape, init_type: str, gain: float,
 def weights_init(model: nn.Module, init_type: str = "normal",
                  init_gain: float = 0.02,
                  generator: torch.Generator | None = None) -> nn.Module:
-    """Re-draw the model's conv weights (`flax_conv_weights`) by
-    `init_type` (normal: gain * N(0, 1); xavier: xavier-normal with gain;
-    kaiming: kaiming-normal, fan_in, a = 0; orthogonal with gain) and every
+    """Re-draw the model's conv weights (`flax_conv_weights`, the stacked
+    Dense kernels a stack at a time) by `init_type` (normal: gain *
+    N(0, 1); xavier: xavier-normal with gain; kaiming: kaiming-normal,
+    fan_in, a = 0; orthogonal with gain) and every
     BatchNorm's scale from N(1, 0.02), its bias 0; in place, drawn on the
     CPU from `generator` (seed 0 when None)."""
     if init_type not in INIT_TYPES:
@@ -126,9 +155,20 @@ def weights_init(model: nn.Module, init_type: str = "normal",
     if generator is None:
         generator = torch.Generator().manual_seed(0)
     params = dict(model.named_parameters())
+    stack = {n: names for names in stacked_weights(model) for n in names}
     for name in flax_conv_weights(model):
-        w = params[name]
-        w.copy_(_scheme(tuple(w.shape), init_type, init_gain, generator))
+        names = stack.get(name, [name])
+        if name != names[0]:
+            continue
+        # one flax kernel, drawn as a torch weight with its stack's layers
+        # last ([out, in, *k, depth]; depth 1 unless stacked, which
+        # changes no fan and no draw): the fans and orthogonal's
+        # [out, in * depth] matrix are flax's; layer t takes [..., t]
+        ws = [params[n] for n in names]
+        full = _scheme((*ws[0].shape, len(ws)), init_type, init_gain,
+                       generator)
+        for t, w in enumerate(ws):
+            w.copy_(full[..., t])
     for m in model.modules():
         if isinstance(m, BatchNorm):
             m.weight.copy_(1.0 + 0.02 * torch.randn(m.weight.shape,

@@ -101,7 +101,13 @@ class FeedForward(nn.Module):
 
 class Transformer(nn.Module):
     """Pre-norm attention + feed-forward, each with a residual, `depth`
-    times (JAX's TransformerBlock, one module a layer)."""
+    times (JAX's TransformerBlock, one module a layer).  JAX's scan
+    stacks each parameter of the layers into one leaf [depth, ...], so
+    every one is of rank >= 2 there (decayed) and each Dense kernel of
+    rank 3 (re-drawn by `weights_init` at the stack's fans): kind
+    "stacked" (core/init.py)."""
+
+    FLAX_KIND = {"layers": "stacked"}
 
     def __init__(self, dim: int, depth: int, heads: int, dim_head: int,
                  mlp_dim: int):

@@ -19,12 +19,14 @@ that share one GPU give it explicitly with `--device cuda:0
 the CPU take gloo.  Rank 0 prints, writes the history and the
 checkpoints.  Started without torchrun, it is one process.  `--backbone`,
 `--neck` and `--phi` take every value the model configuration takes
-(`BACKBONES`, `NECKS`, `WIDTHS`), as the JAX package's CLI does; the
-training step is held against JAX's for EN-GDF-PN-S0, EF-GDF-PN-S0 and
-EN-GDF-PN2-S0 only, not yet for the other backbones, necks and sizes
-(their train forms run, with the reparameterizable blocks unfolded).  The
-trainer keeps the SPP neck and the point-cloud branch, so `--spp` and
-`--is_pc` take True alone.
+(`BACKBONES`, `NECKS`, `WIDTHS`), as the JAX package's CLI does, and
+`--spp false` trains SPPF.  The training step is held against JAX's for
+EN-GDF-PN-S0, S1 and S2, EN-GDF-PN-S0 with SPPF and with the base-256
+head (`--nd false`), EF-GDF-PN-S0 and -L, EN-GDF-PN2-S0, EN-CDF-PN2-S2,
+MV-GDF-PN-S1, EV-GDF-PN-S0 and PF-GDF-PN-S0; not yet for the
+reparameterizable backbones (`rv`, `mo`, `fv`, whose train forms run
+with their blocks unfolded).  `--is_pc` takes True alone: the JAX
+package's losses take the point-cloud output.
 """
 from __future__ import annotations
 
@@ -132,14 +134,15 @@ def main(argv=None):
 
     parser = build_parser()
     args = parser.parse_args(argv)
-    if not (args.spp and args.is_pc):
-        parser.error("the port trains the SPP neck and the point-cloud "
-                     "branch only: --spp and --is_pc take True")
+    if not args.is_pc:
+        parser.error("the port trains the point-cloud branch too, as the "
+                     "JAX package's losses take its output: --is_pc takes "
+                     "True")
     cfg_kw = {} if args.deform_band == "auto" else \
         {"deform_band": args.deform_band}
     cfg = AchelousConfig(
         backbone=args.backbone, neck=args.neck, phi=args.phi,
-        pc_model=args.pc_model, nano_head=args.nd,
+        pc_model=args.pc_model, nano_head=args.nd, use_spp=args.spp,
         resolution=args.resolution, pc_points=args.pc_num,
         dtype=torch.bfloat16 if args.bf16 else torch.float32, **cfg_kw)
     tcfg = TrainConfig(batch_size=args.bs, epochs=args.epoch,

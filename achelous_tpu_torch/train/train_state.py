@@ -17,7 +17,8 @@ trace t <- g + m t, the update g + m t), the learning rate applied after
 it; Adam is `scale_by_adam(b1=momentum, b2=0.999)`.  The decay mask is
 "the JAX counterpart of the parameter has rank >= 2": torch's rank, save
 for the parameters that flax keeps as vectors (kind "vector" in
-`core/init.flax_kinds`), which torch shapes [1,C,1,1] or [C,1,1].
+`core/init.flax_kinds`), which torch shapes [1,C,1,1] or [C,1,1], and
+those it stacks over a scan's layers (kind "stacked"), all of rank >= 2.
 
 A step whose loss or global gradient norm is not finite changes nothing
 (parameters, optimizer state, BatchNorm statistics, EMA) but the step
@@ -142,11 +143,13 @@ def state_tensors(state: TrainState) -> list[torch.Tensor]:
 
 def decay_mask(model: nn.Module) -> set[str]:
     """Names of the parameters that take weight decay: those whose JAX
-    counterpart has rank >= 2 (conv and dense kernels, XCA temperatures),
-    not norms, biases or flax-flat vectors."""
+    counterpart has rank >= 2 (conv and dense kernels, XCA temperatures,
+    and every parameter JAX's scan stacks: MobileViT's transformer norms
+    and biases too), not other norms, biases or flax-flat vectors."""
     kinds = flax_kinds(model)
     return {n for n, p in model.named_parameters()
-            if p.ndim >= 2 and kinds.get(n) != "vector"}
+            if kinds.get(n) == "stacked"
+            or p.ndim >= 2 and kinds.get(n) != "vector"}
 
 
 def create_train_state(model: Achelous, cfg: AchelousConfig,

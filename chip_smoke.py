@@ -36,6 +36,12 @@ parameters), in three phases:
         its plain version on the inputs of the first step's launches; K4's
         indices at batch 32 with a valid mask and without; one float32 step
         of EF-GDF-PN-S0 at batch 8 on the card against the CPU
+    T6  EN-GDF-PN-S1, -S2, EN-GDF-PN-S0 with SPPF and with the base-256
+        head, MV-GDF-PN-S1, EN-CDF-PN2-S2 (K4 x4), EV-, PF-GDF-PN-S0 and
+        EF-GDF-PN-L (K1 x1, K2 x7, K3 x12) at batch 32 in bf16: a warm-up
+        and a timed step each, launches a step held, every launch of the
+        first step held against the plain version; one float32 step of
+        MV-GDF-PN-S1 at batch 8 on the card against the CPU
 
 and runs the trainer's entry point:
 
@@ -221,6 +227,24 @@ TRAIN_PATHS = (
      {"fused_radarconv": 4, "deform_samples": 4, "farthest_point_sample": 4}),
 )
 PATH_STEPS = 4
+# T6: the configurations whose step the CPU tests hold against JAX's
+# beyond T3's and T5's: (label, AchelousConfig fields, launches a step),
+# a warm-up and a timed step each
+T6_PATHS = (
+    ("EN-GDF-PN-S1", dict(phi="S1"), TRAIN_LAUNCHES),
+    ("EN-GDF-PN-S2", dict(phi="S2"), TRAIN_LAUNCHES),
+    ("EN-GDF-PN-S0 SPPF", dict(use_spp=False), TRAIN_LAUNCHES),
+    ("EN-GDF-PN-S0 base head", dict(nano_head=False), TRAIN_LAUNCHES),
+    ("MV-GDF-PN-S1", dict(backbone="mv", phi="S1"), TRAIN_LAUNCHES),
+    ("EN-CDF-PN2-S2", dict(phi="S2", neck="cdf", pc_model="pn2"),
+     dict(TRAIN_LAUNCHES, farthest_point_sample=4)),
+    ("EV-GDF-PN-S0", dict(backbone="ev"), TRAIN_LAUNCHES),
+    ("PF-GDF-PN-S0", dict(backbone="pf"), TRAIN_LAUNCHES),
+    # RCNet at L: K1 on block 0 alone, K2 on the other seven
+    ("EF-GDF-PN-L", dict(backbone="ef", phi="L"),
+     {"fused_radarconv": 1, "deform_samples": 7, "fused_bias_attention": 12}),
+)
+T6_STEPS = 2
 # F1: the tree (frames of 480x270, a quarter of WaterScenes' 1920x1080
 # camera), its batch, epochs
 FIT_TRAIN, FIT_VAL, FIT_SIZE, FIT_BATCH, FIT_EPOCHS = 16, 8, (480, 270), 8, 2
@@ -1252,14 +1276,12 @@ def train_slice(dev):
     steps."""
     from achelous_tpu_torch.core.config import AchelousConfig
     from achelous_tpu_torch.data.synthetic import synthetic_batch
-    from achelous_tpu_torch.train.schedule import get_lr_scheduler, scale_lr
     from achelous_tpu_torch.train.train_state import (TrainConfig,
                                                       create_train_state,
                                                       make_train_step)
     cfg = AchelousConfig(resolution=TRAIN_RES, dtype=torch.bfloat16)
     tcfg = TrainConfig(batch_size=TRAIN_BATCH)
-    init_lr, min_lr = scale_lr(tcfg.lr_init, tcfg.batch_size, tcfg.optimizer)
-    lr = get_lr_scheduler(tcfg.lr_decay, init_lr, min_lr, tcfg.epochs)(1)
+    lr = train_lr(tcfg)
     batches = [synthetic_batch(cfg, tcfg.batch_size, tcfg.max_gt,
                                seed=100 + i, device=dev)
                for i in range(TRAIN_STEPS)]
@@ -1450,74 +1472,82 @@ def check_attention4d_gradients(dev):
         f"through K3 (forward launches {counts})")
 
 
-def train_paths(dev):
-    """T5: EF-GDF-PN-S0 and EN-GDF-PN2-S0 at 320^2, batch 32, bf16 compute
-    on float32 parameters, the default TrainConfig: PATH_STEPS steps each
-    (the first a warm-up), each kernel's launches a step held; then one
-    float32 step (TF32 off) of EF-GDF-PN-S0 at batch STEP_BATCH on the card
-    and on the CPU.  Returns the kernels' launches."""
-    from achelous_tpu_torch.core.config import AchelousConfig
-    from achelous_tpu_torch.data.synthetic import (synthetic_arrays,
-                                                   synthetic_batch)
-    from achelous_tpu_torch.entry import perturb_attention
+def train_lr(tcfg):
+    """The learning rate of epoch 1 of `tcfg`'s schedule."""
     from achelous_tpu_torch.train.schedule import get_lr_scheduler, scale_lr
+    init_lr, min_lr = scale_lr(tcfg.lr_init, tcfg.batch_size, tcfg.optimizer)
+    return get_lr_scheduler(tcfg.lr_decay, init_lr, min_lr, tcfg.epochs)(1)
+
+
+def train_path(dev, tag, label, cfg, want, steps, batch=TRAIN_BATCH):
+    """`steps` steps of `cfg` at `batch` with the default TrainConfig on
+    seeded synthetic batches (the first a warm-up), from a training model
+    whose offset convs and layer scales are drawn: each kernel's launches
+    a step held to `want`, the metrics finite and no step skipped, every
+    launch of the first step held against the plain version on its own
+    inputs.  Logs ms a step (the median after the first, CUDA events),
+    images/s and peak memory; returns (ms, the launches over the
+    steps)."""
+    from achelous_tpu_torch.data.synthetic import synthetic_batch
+    from achelous_tpu_torch.entry import perturb_attention
     from achelous_tpu_torch.train.train_state import (TrainConfig,
                                                       create_train_state,
                                                       make_train_step)
     totals = {}
-    tcfg = TrainConfig(batch_size=TRAIN_BATCH)
-    init_lr, min_lr = scale_lr(tcfg.lr_init, tcfg.batch_size, tcfg.optimizer)
-    lr = get_lr_scheduler(tcfg.lr_decay, init_lr, min_lr, tcfg.epochs)(1)
+    tcfg = TrainConfig(batch_size=batch)
+    lr = train_lr(tcfg)
     w = wrappers()
-    for label, backbone, pc_model, want in TRAIN_PATHS:
-        cfg = AchelousConfig(resolution=TRAIN_RES, backbone=backbone,
-                             pc_model=pc_model, dtype=torch.bfloat16)
-        batches = [synthetic_batch(cfg, TRAIN_BATCH, tcfg.max_gt,
-                                   seed=200 + i, device=dev)
-                   for i in range(PATH_STEPS)]
-        model = train_model(cfg, dev)
-        perturb_attention(model)
-        state = create_train_state(model, cfg, tcfg)
-        step = make_train_step(cfg, tcfg)
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        times, records = [], []
-        for i, batch in enumerate(batches):
-            for f in w.values():
-                f.launches = 0
-            t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
-            with (on_path_inputs(records) if i == 0
-                  else contextlib.nullcontext()):
-                t0.record()
-                state, m = step(state, batch, lr)
-                t1.record()
-                torch.cuda.synchronize()
-            times.append(t0.elapsed_time(t1))
-            counts = {n: f.launches for n, f in w.items() if f.launches}
-            if counts != want:
-                raise AssertionError(f"T5 {label} step {i}: launches "
-                                     f"{counts}, want {want}")
-            for n, c in counts.items():
-                totals[n] = totals.get(n, 0) + c
-            vals = {k: float(v) for k, v in m.items()}
-            if m["skipped_nonfinite"] or not all(
-                    np.isfinite(list(vals.values()))):
-                raise AssertionError(f"T5 {label} step {i}: metrics {vals}")
-            log(f"T5 {label} step {i}: {times[-1]:.1f} ms, " + ", ".join(
-                f"{k} {v:.4g}" for k, v in vals.items()))
-        peak = torch.cuda.max_memory_allocated(dev)
-        ms = float(np.median(times[1:]))
-        log(f"T5 {label} train bf16 bs{TRAIN_BATCH} 320x320: {ms:.2f} "
-            f"ms/step (median of steps 2-{PATH_STEPS}, CUDA events), "
-            f"{TRAIN_BATCH / ms * 1e3:.1f} images/s, peak memory "
-            f"{peak / 2**30:.2f} GiB (max_memory_allocated); launches a "
-            f"step {want}")
-        check_on_path(f"T5 {label} step 0", records)
-        del state, step, model, batches, records
-        torch.cuda.empty_cache()
-    time_fps_at_batch(dev)
+    batches = [synthetic_batch(cfg, batch, tcfg.max_gt, seed=200 + i,
+                               device=dev) for i in range(steps)]
+    model = train_model(cfg, dev)
+    perturb_attention(model, layer_scale=C2_LAYER_SCALE.get(cfg.phi, 0.05))
+    state = create_train_state(model, cfg, tcfg)
+    step = make_train_step(cfg, tcfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    times, records = [], []
+    for i, b in enumerate(batches):
+        for f in w.values():
+            f.launches = 0
+        t0, t1 = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        with (on_path_inputs(records) if i == 0
+              else contextlib.nullcontext()):
+            t0.record()
+            state, m = step(state, b, lr)
+            t1.record()
+            torch.cuda.synchronize()
+        times.append(t0.elapsed_time(t1))
+        counts = {n: f.launches for n, f in w.items() if f.launches}
+        if counts != want:
+            raise AssertionError(f"{tag} {label} step {i}: launches "
+                                 f"{counts}, want {want}")
+        add_counts(totals, counts)
+        vals = {k: float(v) for k, v in m.items()}
+        if m["skipped_nonfinite"] or not all(
+                np.isfinite(list(vals.values()))):
+            raise AssertionError(f"{tag} {label} step {i}: metrics {vals}")
+        log(f"{tag} {label} step {i}: {times[-1]:.1f} ms, " + ", ".join(
+            f"{k} {v:.4g}" for k, v in vals.items()))
+    peak = torch.cuda.max_memory_allocated(dev)
+    ms = float(np.median(times[1:] or times))
+    log(f"{tag} {label} train bf16 bs{batch} {cfg.resolution}x"
+        f"{cfg.resolution}: {ms:.2f} ms/step (median of steps 2-{steps}, "
+        f"CUDA events), {batch / ms * 1e3:.1f} images/s, peak memory "
+        f"{peak / 2**30:.2f} GiB (max_memory_allocated); launches a step "
+        f"{want}")
+    check_on_path(f"{tag} {label} step 0", records)
+    del state, step, model, batches, records
+    torch.cuda.empty_cache()
+    return ms, totals
 
-    cfg = AchelousConfig(resolution=TRAIN_RES, backbone="ef")
+
+def float32_step_against_cpu(dev, tag, cfg, want):
+    """One float32 step (TF32 off) of `cfg` at batch STEP_BATCH on the card
+    (its kernels' launches held to `want`) and on the CPU from the same
+    weights and batch: losses and grad_norm within STEP_LOSS_RTOL."""
+    from achelous_tpu_torch.data.synthetic import synthetic_arrays
+    from achelous_tpu_torch.entry import perturb_attention
+    from achelous_tpu_torch.train.train_state import TrainConfig
     tcfg = TrainConfig()
     model = train_model(cfg, "cpu")
     perturb_attention(model)
@@ -1529,17 +1559,58 @@ def train_paths(dev):
     _, gm, counts = one_step(model, cfg, tcfg, arrays, dev)
     (torch.backends.cuda.matmul.allow_tf32,
      torch.backends.cudnn.allow_tf32) = tf32
-    if counts != TRAIN_PATHS[0][3]:
-        raise AssertionError(f"T5 float32 step launches {counts}")
+    if counts != want:
+        raise AssertionError(f"{tag} float32 step launches {counts}")
     _, wm, _ = one_step(model, cfg, tcfg, arrays, torch.device("cpu"))
     rel = {k: abs(gm[k] - wm[k]) / abs(wm[k]) for k in
            ("loss", "loss_det", "loss_seg", "loss_wl", "loss_pc",
             "grad_norm")}
-    log(f"T5 EF-GDF-PN-S0 float32 step batch {STEP_BATCH} card vs CPU, "
+    log(f"{tag} {cfg.name} float32 step batch {STEP_BATCH} card vs CPU, "
         "relative: " + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()))
     if gm["skipped_nonfinite"] or wm["skipped_nonfinite"] or max(
             rel.values()) > STEP_LOSS_RTOL:
-        raise AssertionError(f"T5 losses/grad_norm outside {STEP_LOSS_RTOL}")
+        raise AssertionError(f"{tag} losses/grad_norm outside "
+                             f"{STEP_LOSS_RTOL}")
+
+
+def train_paths(dev):
+    """T5: EF-GDF-PN-S0 and EN-GDF-PN2-S0 at 320^2, batch 32, bf16 compute
+    on float32 parameters, the default TrainConfig: PATH_STEPS steps each
+    (the first a warm-up), each kernel's launches a step held; then one
+    float32 step (TF32 off) of EF-GDF-PN-S0 at batch STEP_BATCH on the card
+    and on the CPU.  Returns the kernels' launches."""
+    from achelous_tpu_torch.core.config import AchelousConfig
+    totals = {}
+    for label, backbone, pc_model, want in TRAIN_PATHS:
+        cfg = AchelousConfig(resolution=TRAIN_RES, backbone=backbone,
+                             pc_model=pc_model, dtype=torch.bfloat16)
+        add_counts(totals, train_path(dev, "T5", label, cfg, want,
+                                      PATH_STEPS)[1])
+    time_fps_at_batch(dev)
+    float32_step_against_cpu(dev, "T5", AchelousConfig(
+        resolution=TRAIN_RES, backbone="ef"), TRAIN_PATHS[0][3])
+    return totals
+
+
+def train_configs(dev):
+    """T6: every configuration of T6_PATHS at 320^2, batch 32, bf16
+    compute on float32 parameters, the default TrainConfig: a warm-up and
+    a timed step each, each kernel's launches a step held, every launch of
+    the first step held against the plain version; then one float32 step
+    (TF32 off) of MV-GDF-PN-S1 at batch STEP_BATCH on the card and on the
+    CPU.  Returns the kernels' launches."""
+    from achelous_tpu_torch.core.config import AchelousConfig
+    totals, ms = {}, {}
+    for label, fields, want in T6_PATHS:
+        cfg = AchelousConfig(resolution=TRAIN_RES, dtype=torch.bfloat16,
+                             **fields)
+        ms[label], counts = train_path(dev, "T6", label, cfg, want,
+                                       T6_STEPS)
+        add_counts(totals, counts)
+    log("T6 ms a step at bs 32: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in ms.items()))
+    float32_step_against_cpu(dev, "T6", AchelousConfig(
+        resolution=TRAIN_RES, backbone="mv", phi="S1"), TRAIN_LAUNCHES)
     return totals
 
 
@@ -2581,6 +2652,9 @@ def main():
     with phase("T5 training EF-GDF-PN-S0 and EN-GDF-PN2-S0"):
         for name, count in train_paths(dev).items():
             launches[name] += count
+    torch.cuda.empty_cache()
+    with phase("T6 training the other held configurations"):
+        add_counts(launches, train_configs(dev))
     torch.cuda.empty_cache()
     with phase("F1 fit on a WaterScenes tree"):
         for name, count in fit_on_the_card(dev).items():

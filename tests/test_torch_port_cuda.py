@@ -23,7 +23,9 @@ versions over bands 0-6 (and None for K2), ragged maps, K3's training and
 serving shapes and both dtypes, and a grad-enabled DeformableConv2d and an
 EF model's Attention4Ds must give every parameter a gradient.  An eval
 after a bf16 training step must run on the new weights.  A PointNet++
-training step launches K4 on inputs with no graph.  The radar splat on the
+training step launches K4 on inputs with no graph.  chip_smoke.py T6's
+step of MV-GDF-PN-S1 and EF-GDF-PN-L at batch 2 launches its kernels as
+T6 holds them, each launch held against the plain version.  The radar splat on the
 card equals the CPU's.  Exported request functions (EN-GDF-PN-S0, and
 MO-RDF-PN-S0 in deploy form) hold K1 x4 and K2 x4 as operator nodes and
 launch them.
@@ -682,6 +684,20 @@ def test_pn2_train_step_launches_fps(cuda_device):
         assert m["skipped_nonfinite"] == 0.0
         assert all(bool(torch.isfinite(torch.as_tensor(v))) for v in
                    m.values())
+
+
+@pytest.mark.parametrize("label", ["MV-GDF-PN-S1", "EF-GDF-PN-L"])
+def test_t6_train_step_launches_match_plain(cuda_device, label):
+    """chip_smoke.py T6's step at batch 2: one bf16 step of MV-GDF-PN-S1
+    (K1 x4, K2 x4) or EF-GDF-PN-L (K1 x1, K2 x7, K3 x12) at 320x320, its
+    launches as in T6_PATHS, each held against the plain version on its
+    own inputs, the metrics finite."""
+    from achelous_tpu_torch.core.config import AchelousConfig
+    from chip_smoke import T6_PATHS, train_path
+    fields, want = {k: (f, w) for k, f, w in T6_PATHS}[label]
+    cfg = AchelousConfig(dtype=torch.bfloat16, **fields)
+    _, counts = train_path(cuda_device, "T6", label, cfg, want, 1, batch=2)
+    assert counts == want
 
 
 def test_radar_splat_on_the_card_equals_the_cpu(cuda_device):

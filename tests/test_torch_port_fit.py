@@ -148,7 +148,7 @@ def test_cli_trains_evaluates_and_resumes(tree, tmp_path):
              if n.startswith(BACKBONE) and not torch.equal(p, init[n])]
     assert moved
     with pytest.raises(SystemExit):
-        cli.main(argv + ["--spp", "false"])
+        cli.main(argv + ["--is_pc", "false"])
 
 
 def cli_initial_backbone(tree):
