@@ -23,10 +23,21 @@ checkpoints.  Started without torchrun, it is one process.  `--backbone`,
 `--spp false` trains SPPF.  The training step is held against JAX's for
 EN-GDF-PN-S0, S1 and S2, EN-GDF-PN-S0 with SPPF and with the base-256
 head (`--nd false`), EF-GDF-PN-S0 and -L, EN-GDF-PN2-S0, EN-CDF-PN2-S2,
-MV-GDF-PN-S1, EV-GDF-PN-S0 and PF-GDF-PN-S0; not yet for the
-reparameterizable backbones (`rv`, `mo`, `fv`, whose train forms run
-with their blocks unfolded).  `--is_pc` takes True alone: the JAX
-package's losses take the point-cloud output.
+MV-GDF-PN-S1, EV-GDF-PN-S0 and PF-GDF-PN-S0, and for the
+reparameterizable RV-GDF-PN-S0, MO-RDF-PN-S0 and FV-RDF-PN-S0, which
+train in their train form (every branch unfolded, as JAX trains them);
+their checkpoints serve folded through `predict_cli --ckpt ... --deploy`:
+
+  python -m achelous_tpu_torch.train.cli --backbone mo --neck rdf \
+      --data_root /path/to/WaterScenes --log_dir logs
+  python -m achelous_tpu_torch.predict_cli --backbone mo --neck rdf \
+      --ckpt logs/ckpt/last_epoch_weights --deploy --image img.jpg \
+      --radar_csv r.csv
+
+The tests that hold these steps: tests/test_torch_port_train_configs.py,
+tests/test_torch_port_train_modules.py, tests/test_torch_port_trained_fold.py
+and the slow tests/test_torch_port_train_steps.py.  `--is_pc` takes True
+alone: the JAX package's losses take the point-cloud output.
 """
 from __future__ import annotations
 

@@ -42,6 +42,19 @@ parameters), in three phases:
         and a timed step each, launches a step held, every launch of the
         first step held against the plain version; one float32 step of
         MV-GDF-PN-S1 at batch 8 on the card against the CPU
+    T7  the reparameterizable RV-GDF-PN-S0, MO-RDF-PN-S0 and FV-RDF-PN-S0
+        in their train form as T6 trains them; each trained EMA folded
+        in float32 on the card and held against the train form's eval
+        output (TF32 off, DEPLOY_TOL of each output's scale), then
+        served at batch 1 in bf16 through entry() and decode + NMS in
+        both forms (kernels a frame and ms a frame of each; the deploy
+        form's outputs before decode against float32 plain on the CPU,
+        every launch held against the plain version); one float32 step
+        of MO-RDF-PN-S0 at batch 8 on the card against the CPU (with
+        float32's spread where 1e-3 does not hold); `train.cli.main` for
+        one epoch of MO-RDF-PN-S0 on a tree like F1's, then
+        `predict_cli.main --ckpt <its last checkpoint> --deploy` on one
+        of its frames
 
 and runs the trainer's entry point:
 
@@ -245,6 +258,23 @@ T6_PATHS = (
      {"fused_radarconv": 1, "deform_samples": 7, "fused_bias_attention": 12}),
 )
 T6_STEPS = 2
+# T7: the reparameterizable configurations, trained in their train form
+# as T6 trains, then each trained EMA folded and served in its deploy form
+T7_PATHS = (
+    ("RV-GDF-PN-S0", dict(backbone="rv"), TRAIN_LAUNCHES),
+    ("MO-RDF-PN-S0", dict(backbone="mo", neck="rdf"), TRAIN_LAUNCHES),
+    ("FV-RDF-PN-S0", dict(backbone="fv", neck="rdf"), TRAIN_LAUNCHES),
+)
+# decode takes exp of the box sizes: where a detection map passes
+# EXP_SAFE the exp overflows and the boxes are not finite, as they are on
+# a few steps' EMA of MobileOne-S0, whose eval-mode maps grow ~2x a block
+# (its running statistics barely moved off (0, 1)) to ~1e8; its outputs
+# are held before decode, relative to their scale
+EXP_SAFE = 80.0
+OUTPUT_NAMES = ("det0", "det1", "det2", "sem", "lane", "pc")
+# one bf16 step: the requests scaled by 1 +- BF16_NUDGE read how far a
+# state amplifies bf16's rounding
+BF16_NUDGE = 2.0 ** -8
 # F1: the tree (frames of 480x270, a quarter of WaterScenes' 1920x1080
 # camera), its batch, epochs
 FIT_TRAIN, FIT_VAL, FIT_SIZE, FIT_BATCH, FIT_EPOCHS = 16, 8, (480, 270), 8, 2
@@ -827,12 +857,15 @@ def check_on_path(label, records):
             for (n, d), e in sorted(worst.items(), key=str)))
 
 
-def serve_path(dev, label, want_rose, records=None, n=REQUESTS, **path):
+def serve_path(dev, label, want_rose, records=None, n=REQUESTS,
+               limits=None, worst=None, **path):
     """Phase 4, C1 and C2: serve `n` requests through entry(**path) on
     one path (its config's name leads `label`), with the launch counts
     set to 0 just before and read just after; check the outputs against
-    float32 plain on the CPU.  With `records`, the kernels' launch sites
-    keep the inputs of every launch there (`on_path_inputs`).  Without a
+    float32 plain on the CPU, each within MAIN_PATH_TOL of its scale or
+    within `limits[name]` where given; a dict `worst` receives each
+    output's error.  With `records`, the kernels' launch sites keep the
+    inputs of every launch there (`on_path_inputs`).  Without a
     `state_dict` in `path`, the seed-0 weights get their offset convs and
     layer scales drawn (`perturb_deform_convs`, `perturb_attention`)."""
     from achelous_tpu_torch.entry import (entry, perturb_attention,
@@ -880,7 +913,8 @@ def serve_path(dev, label, want_rose, records=None, n=REQUESTS, **path):
         f"a request {want_rose}")
 
     r, k = cfg.resolution, cfg.num_det
-    worst = {}
+    worst = {} if worst is None else worst
+    limits = limits or {}
     with torch.inference_mode():
         for q, dq, (dets, sem, lane, *pc) in zip(reqs, dev_reqs, outs):
             det = model.det_head(model.image_radar_encoder(*dq[:2])[0])
@@ -903,7 +937,8 @@ def serve_path(dev, label, want_rose, records=None, n=REQUESTS, **path):
                     raise AssertionError(f"det[{lvl}] shape {tuple(g.shape)},"
                                          f" want {s}")
             if dets.boxes.shape != (1, 100, 4) or not bool(
-                    torch.isfinite(dets.boxes).all()):
+                    torch.isfinite(dets.boxes).all()) and max(
+                    float(g.abs().max()) for g in det) < EXP_SAFE:
                 raise AssertionError("detections: bad shape or non-finite")
             pairs = [(name, got[name], want[name]) for name in shapes]
             pairs += [(f"det{i}", g, w) for i, (g, w) in
@@ -917,9 +952,11 @@ def serve_path(dev, label, want_rose, records=None, n=REQUESTS, **path):
                 worst[name] = max(worst.get(name, 0.0), e)
     log(f"main path {label} vs float32 plain (max err / max(1, max|ref|)): "
         + ", ".join(f"{n} {e:.3g}" for n, e in worst.items()))
-    bad = {n: e for n, e in worst.items() if e > MAIN_PATH_TOL}
+    bad = {n: e for n, e in worst.items()
+           if e > limits.get(n, MAIN_PATH_TOL)}
     if bad:
-        raise AssertionError(f"{label} outside {MAIN_PATH_TOL}: {bad}")
+        raise AssertionError(f"{label} outside {MAIN_PATH_TOL} (or "
+                             f"{limits}): {bad}")
     if pn2:
         for h in hooks + ref_hooks:
             h.remove()
@@ -1479,7 +1516,8 @@ def train_lr(tcfg):
     return get_lr_scheduler(tcfg.lr_decay, init_lr, min_lr, tcfg.epochs)(1)
 
 
-def train_path(dev, tag, label, cfg, want, steps, batch=TRAIN_BATCH):
+def train_path(dev, tag, label, cfg, want, steps, batch=TRAIN_BATCH,
+               ema=None):
     """`steps` steps of `cfg` at `batch` with the default TrainConfig on
     seeded synthetic batches (the first a warm-up), from a training model
     whose offset convs and layer scales are drawn: each kernel's launches
@@ -1487,7 +1525,8 @@ def train_path(dev, tag, label, cfg, want, steps, batch=TRAIN_BATCH):
     launch of the first step held against the plain version on its own
     inputs.  Logs ms a step (the median after the first, CUDA events),
     images/s and peak memory; returns (ms, the launches over the
-    steps)."""
+    steps).  A dict `ema` receives the EMA's parameters and statistics
+    after the steps, on the CPU, by the train form's keys."""
     from achelous_tpu_torch.data.synthetic import synthetic_batch
     from achelous_tpu_torch.entry import perturb_attention
     from achelous_tpu_torch.train.train_state import (TrainConfig,
@@ -1536,15 +1575,22 @@ def train_path(dev, tag, label, cfg, want, steps, batch=TRAIN_BATCH):
         f"{peak / 2**30:.2f} GiB (max_memory_allocated); launches a step "
         f"{want}")
     check_on_path(f"{tag} {label} step 0", records)
+    if ema is not None:
+        ema.update({k: v.detach().cpu().clone() for k, v in
+                    {**state.ema_params, **state.ema_batch_stats}.items()})
     del state, step, model, batches, records
     torch.cuda.empty_cache()
     return ms, totals
 
 
-def float32_step_against_cpu(dev, tag, cfg, want):
+def float32_step_against_cpu(dev, tag, cfg, want, spread=False):
     """One float32 step (TF32 off) of `cfg` at batch STEP_BATCH on the card
     (its kernels' launches held to `want`) and on the CPU from the same
-    weights and batch: losses and grad_norm within STEP_LOSS_RTOL."""
+    weights and batch: losses and grad_norm within STEP_LOSS_RTOL.  With
+    `spread`, where that fails, each is held to STEP_LOSS_RTOL plus
+    STEP_FLOOR times its float32 spread, read as T2 reads it: the most the
+    CPU's step moves it with the batch scaled by 1 +- STEP_NUDGE or
+    reversed."""
     from achelous_tpu_torch.data.synthetic import synthetic_arrays
     from achelous_tpu_torch.entry import perturb_attention
     from achelous_tpu_torch.train.train_state import TrainConfig
@@ -1561,16 +1607,30 @@ def float32_step_against_cpu(dev, tag, cfg, want):
      torch.backends.cudnn.allow_tf32) = tf32
     if counts != want:
         raise AssertionError(f"{tag} float32 step launches {counts}")
-    _, wm, _ = one_step(model, cfg, tcfg, arrays, torch.device("cpu"))
-    rel = {k: abs(gm[k] - wm[k]) / abs(wm[k]) for k in
-           ("loss", "loss_det", "loss_seg", "loss_wl", "loss_pc",
-            "grad_norm")}
+    cpu = torch.device("cpu")
+    _, wm, _ = one_step(model, cfg, tcfg, arrays, cpu)
+    keys = ("loss", "loss_det", "loss_seg", "loss_wl", "loss_pc",
+            "grad_norm")
+    rel = {k: abs(gm[k] - wm[k]) / abs(wm[k]) for k in keys}
     log(f"{tag} {cfg.name} float32 step batch {STEP_BATCH} card vs CPU, "
         "relative: " + ", ".join(f"{k} {v:.3g}" for k, v in rel.items()))
-    if gm["skipped_nonfinite"] or wm["skipped_nonfinite"] or max(
-            rel.values()) > STEP_LOSS_RTOL:
+    bound = {k: STEP_LOSS_RTOL for k in keys}
+    if spread and max(rel.values()) > STEP_LOSS_RTOL:
+        nudged = [one_step(model, cfg, tcfg, arrays, cpu, 1 + s)[1]
+                  for s in (STEP_NUDGE, -STEP_NUDGE)]
+        nudged.append(one_step(model, cfg, tcfg, arrays, cpu,
+                               reverse=True)[1])
+        own = {k: max(abs(m[k] - wm[k]) / abs(wm[k]) for m in nudged)
+               for k in keys}
+        bound = {k: STEP_LOSS_RTOL + STEP_FLOOR * own[k] for k in keys}
+        log(f"{tag} {cfg.name} float32 CPU vs CPU with the batch scaled by "
+            f"1 +- {STEP_NUDGE:g} or reversed, relative: " + ", ".join(
+                f"{k} {v:.3g}" for k, v in own.items()))
+    if gm["skipped_nonfinite"] or wm["skipped_nonfinite"] or any(
+            rel[k] > bound[k] for k in keys):
         raise AssertionError(f"{tag} losses/grad_norm outside "
-                             f"{STEP_LOSS_RTOL}")
+                             f"{STEP_LOSS_RTOL}" + (" and their spread" if
+                                                    spread else ""))
 
 
 def train_paths(dev):
@@ -1611,6 +1671,159 @@ def train_configs(dev):
         f"{k} {v:.2f}" for k, v in ms.items()))
     float32_step_against_cpu(dev, "T6", AchelousConfig(
         resolution=TRAIN_RES, backbone="mv", phi="S1"), TRAIN_LAUNCHES)
+    return totals
+
+
+def train_reparameterizable(dev):
+    """T7: RV-GDF-PN-S0, MO-RDF-PN-S0 and FV-RDF-PN-S0 trained in their
+    train form as T6 trains (`train_path`: a warm-up and a timed step at
+    batch 32, bf16), each trained EMA then folded in float32 on the card
+    and held against the train form's eval output (`deploy_against_train`)
+    and served in its deploy form (`serve_trained`); one float32 step of
+    MO-RDF-PN-S0 at batch STEP_BATCH on the card against the CPU; the
+    entry path once (`cli_path`).  Returns the kernels' launches."""
+    from achelous_tpu_torch.core.config import AchelousConfig
+    totals, ms = {}, {}
+    for label, fields, want in T7_PATHS:
+        cfg = AchelousConfig(resolution=TRAIN_RES, dtype=torch.bfloat16,
+                             **fields)
+        ema = {}
+        ms[label], counts = train_path(dev, "T7", label, cfg, want,
+                                       T6_STEPS, ema=ema)
+        add_counts(totals, counts)
+        deploy_against_train(dev, f"T7 {label} trained EMA", cfg, ema)
+        add_counts(totals, serve_trained(dev, label, fields, want, ema))
+        torch.cuda.empty_cache()
+    log("T7 ms a step at bs 32: " + ", ".join(
+        f"{k} {v:.2f}" for k, v in ms.items()))
+    float32_step_against_cpu(dev, "T7", AchelousConfig(
+        resolution=TRAIN_RES, backbone="mo", neck="rdf"), TRAIN_LAUNCHES,
+        spread=True)
+    add_counts(totals, cli_path(dev))
+    return totals
+
+
+def bf16_spread(model, cfg, dev):
+    """name -> the most each output of `model` moves, relative to its
+    scale, when the requests of `serve_path` (DEPLOY_REQUESTS of them) are
+    scaled by 1 +- BF16_NUDGE, one bf16 step: the rounding that the
+    model's state amplifies in bf16."""
+    spread = {}
+    with torch.inference_mode():
+        for q in requests(cfg, DEPLOY_REQUESTS):
+            base = None
+            for s in (1.0, 1 + BF16_NUDGE, 1 - BF16_NUDGE):
+                det, sem, lane, pc = model(*(t.to(dev).mul(s).to(cfg.dtype)
+                                             for t in q))
+                outs = dict(zip(OUTPUT_NAMES, (*det, sem, lane, pc)))
+                if base is None:
+                    base = outs
+                    continue
+                for n, o in outs.items():
+                    b = base[n].float()
+                    e = ((o.float() - b).abs().max()
+                         / max(1.0, b.abs().max().item())).item()
+                    spread[n] = max(spread.get(n, 0.0), e)
+    return spread
+
+
+def serve_trained(dev, label, fields, want, ema):
+    """T7: a trained EMA served through entry() at batch 1, bf16, through
+    decode + NMS, in its train form and in its deploy form:
+    DEPLOY_REQUESTS requests each, each one's launches held to `want` and
+    (deploy form) every launch's inputs against the plain version, the
+    outputs before decode against float32 plain on the CPU relative to
+    their scale (`serve_path`; the train form's logged).  The deploy
+    form's outputs are held within MAIN_PATH_TOL, or STEP_FLOOR times
+    their bf16 spread (`bf16_spread`) where that is larger: a few steps'
+    EMA of MobileOne-S0 grows its eval maps to ~1e8, where bf16 keeps few
+    of a det map's digits.  Then ms and kernels a frame of both forms.
+    Returns the deploy form's launches."""
+    never = {n: float("inf") for n in OUTPUT_NAMES}
+    _, model, fn = serve_path(dev, f"{label} train form", want,
+                              n=DEPLOY_REQUESTS, limits=never,
+                              state_dict=ema, **fields)
+    q = tuple(torch.rand(s, device=dev).to(fn.cfg.dtype) for s in
+              ((1, 3, 320, 320), (1, 3, 320, 320), (1, 512, 5)))
+    forms = {"train": time_path(f"T7 {label} train form", model, fn, q)}
+    del model, fn
+    worst, records = {}, []
+    counts, model, fn = serve_path(dev, f"{label} deploy", want, records,
+                                   n=DEPLOY_REQUESTS, limits=never,
+                                   worst=worst, state_dict=ema, deploy=True,
+                                   **fields)
+    check_on_path(f"T7 {label} deploy", records)
+    spread = bf16_spread(model, fn.cfg, dev)
+    limits = {n: max(MAIN_PATH_TOL, STEP_FLOOR * spread[n]) for n in worst}
+    log(f"T7 {label} deploy bf16 against itself on the requests scaled by "
+        f"1 +- {BF16_NUDGE:g}: " + ", ".join(f"{n} {e:.3g}"
+                                            for n, e in spread.items()))
+    bad = {n: e for n, e in worst.items() if e > limits[n]}
+    if bad:
+        raise AssertionError(f"T7 {label} deploy outside {limits}: {bad}")
+    forms["deploy"] = time_path(f"T7 {label} deploy", model, fn, q)
+    log(f"T7 {label} trained EMA served bf16 bs1: train form "
+        f"{forms['train'][1]:.0f} kernels/frame, {forms['train'][0]:.3f} "
+        f"ms/frame; deploy form {forms['deploy'][1]:.0f}, "
+        f"{forms['deploy'][0]:.3f}")
+    return counts
+
+
+def cli_path(dev):
+    """T7: the entry path of MO-RDF-PN-S0: `train.cli.main` for one epoch
+    at 320^2, bf16, batch FIT_BATCH on a tree like F1's, its launches
+    held against the plain version; then `predict_cli.main` in predict
+    mode with `--ckpt <the last checkpoint> --deploy` on one of its
+    frames (K1 x4, K2 x4).  The launches of each are counted from 0 just
+    before it to just after.  Returns them."""
+    import tempfile
+    from achelous_tpu_torch import predict_cli
+    from achelous_tpu_torch.data.example import write_tree
+    from achelous_tpu_torch.train import cli
+    totals, records = {}, []
+    argv = ["--backbone", "mo", "--neck", "rdf", "--resolution",
+            str(TRAIN_RES)]
+    with tempfile.TemporaryDirectory() as root:
+        write_tree(root, FIT_TRAIN + FIT_VAL, FIT_SIZE, points=400,
+                   val=FIT_VAL)
+        log_dir = os.path.join(root, "logs")
+        t0 = time.perf_counter()
+        with on_path_inputs(records):
+            state, counts = counted(lambda: cli.main(argv + [
+                "--data_root", root, "--bs", str(FIT_BATCH), "--epoch", "1",
+                "--eval_period", "5", "--save_period", "1", "--log_dir",
+                log_dir]))
+        hist = [json.loads(line) for line in
+                open(os.path.join(log_dir, "history.jsonl"))]
+        if state.epoch != 1 or state.step != FIT_TRAIN // FIT_BATCH or \
+                not np.isfinite(hist[-1]["loss"]) or not \
+                {"fused_radarconv", "deform_samples"} <= set(counts):
+            raise AssertionError(f"T7 train.cli: epoch {state.epoch}, step "
+                                 f"{state.step}, history {hist}, launches "
+                                 f"{counts}")
+        log(f"T7 train.cli MO-RDF-PN-S0 one epoch of {FIT_TRAIN} frames at "
+            f"bs {FIT_BATCH}: {time.perf_counter() - t0:.1f} s, loss "
+            f"{hist[-1]['loss']:.4g}, val_loss "
+            f"{hist[-1].get('val_loss', float('nan')):.4g}, launches "
+            f"{counts}")
+        add_counts(totals, counts)
+        check_on_path("T7 train.cli", records)
+        out = os.path.join(root, "predicted")
+        frame = os.path.join(root, "images", "frame000.jpg")
+        t0 = time.perf_counter()
+        summary, counts = counted(lambda: predict_cli.main(argv + [
+            "--ckpt", os.path.join(log_dir, "ckpt", "last_epoch_weights"),
+            "--deploy", "--image", frame, "--radar_csv",
+            os.path.join(root, "radar", "frame000.csv"), "--out", out]))
+        if counts != TRAIN_LAUNCHES or not all(
+                os.path.exists(os.path.join(out, "frame000" + suffix))
+                for suffix in (".json", "_masks.npz", "_vis.jpg")):
+            raise AssertionError(f"T7 predict_cli --ckpt --deploy: launches "
+                                 f"{counts}, wrote {os.listdir(out)}")
+        log(f"T7 predict_cli --ckpt last_epoch_weights --deploy: "
+            f"{time.perf_counter() - t0:.1f} s, {summary['num_detections']} "
+            f"detections, launches {counts}")
+        add_counts(totals, counts)
     return totals
 
 
@@ -2655,6 +2868,9 @@ def main():
     torch.cuda.empty_cache()
     with phase("T6 training the other held configurations"):
         add_counts(launches, train_configs(dev))
+    torch.cuda.empty_cache()
+    with phase("T7 training the reparameterizable configurations"):
+        add_counts(launches, train_reparameterizable(dev))
     torch.cuda.empty_cache()
     with phase("F1 fit on a WaterScenes tree"):
         for name, count in fit_on_the_card(dev).items():

@@ -8,6 +8,9 @@ EfficientFormerV2-L, the `rdf` neck's RepVGG blocks and the deploy fold
     deploy block on JAX's `reparameterize(variables)`, at atol 2e-5 /
     rtol 1e-4 (tests/test_reparam.py's tolerance); the folded keys are
     the deploy block's;
+  * each of those blocks in its train form in train mode against the
+    flax block: forward, `jax.vjp` gradients and moved statistics, under
+    test_torch_port_train_modules.py's gates (one small jit a block);
   * the RepViT (train and deploy form) and PoolFormer backbones against
     their JAX modules at 64x64, batch 2, within rtol 2e-3 / atol 1e-3
     (the other backbones are held inside whole models in
@@ -63,6 +66,7 @@ from test_backbones import GOLDEN_PARAMS
 from test_torch_port_backbones_models import (EF_CONFIGS, OUTPUTS,
                                               check_backbone, check_output)
 from test_torch_port_slice import BATCH, RES, nchw, random_variables
+import test_torch_port_train_modules as train_modules
 
 TOL = dict(rtol=2e-3, atol=1e-3)
 FOLD_TOL = dict(rtol=1e-4, atol=2e-5)
@@ -175,6 +179,45 @@ def test_fold_matches_jax(name):
     np.testing.assert_allclose(got, nchw(want), **FOLD_TOL)
     # and the fold is exact on the port's own train form
     np.testing.assert_allclose(got, train_out, **FOLD_TOL)
+
+
+def _block_spec(name):
+    """FOLDS' block `name` in its train form as a module of
+    test_torch_port_train_modules.py's harness (its own seed)."""
+    case = FOLDS[name]
+    entries = ti.Mapping()
+    case["entries"](entries)
+    return dict(jax=case["jax"](False),
+                port=nn.ModuleDict({"blk": case["port"](False)}),
+                entries=entries, inputs=[(HW, HW, case["cin"])],
+                call=lambda m, x: m["blk"](x),
+                seed=30 + sorted(FOLDS).index(name))
+
+
+# the harness's names of the blocks
+BLOCKS = {f"{n} block": functools.partial(_block_spec, n) for n in FOLDS}
+train_modules.BUILD.update(BLOCKS)
+
+
+@pytest.mark.parametrize("name", sorted(BLOCKS))
+def test_block_train_forward_matches_flax(name):
+    """Each reparameterizable block's train form in train mode (batch
+    statistics) against the flax block's, at the slice tolerance."""
+    train_modules.check_forward(name)
+
+
+@pytest.mark.parametrize("name", sorted(BLOCKS))
+def test_block_train_gradients_match_flax_vjp(name):
+    """`jax.vjp` of the flax block against torch's backward, under
+    test_torch_port_train_modules.py's gradient gate."""
+    train_modules.check_gradients(name)
+
+
+@pytest.mark.parametrize("name", sorted(BLOCKS))
+def test_block_train_statistics_match_flax(name):
+    """The running statistics the train-mode forward moved (RepCPE has
+    none: one conv)."""
+    train_modules.check_statistics(name)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,11 @@
 """The port's training configurations beyond EN-GDF-PN-S0, EF-GDF-PN-S0 and
 EN-GDF-PN2-S0, against the JAX package's training rules, on the CPU.
 
-The nine configurations (`CONFIGS`): EN-GDF-PN-S1 and -S2, EN-GDF-PN-S0
+The twelve configurations (`CONFIGS`): EN-GDF-PN-S1 and -S2, EN-GDF-PN-S0
 with SPPF (`use_spp=False`) and with the base-256 head
-(`nano_head=False`), MV-GDF-PN-S1, EN-CDF-PN2-S2, EV-, PF-GDF-PN-S0 and
-EF-GDF-PN-L, at 64x64.  No JAX step is compiled here: the JAX side is
+(`nano_head=False`), MV-GDF-PN-S1, EN-CDF-PN2-S2, EV-, PF-GDF-PN-S0,
+EF-GDF-PN-L, and the reparameterizable RV-GDF-PN-S0, MO-RDF-PN-S0 and
+FV-RDF-PN-S0 in their train form, at 64x64.  No JAX step is compiled here: the JAX side is
 `jax.eval_shape` of the model's init and eager JAX.
 
   * The weight-decay set against JAX's `_wd_mask` through the mapping:
@@ -65,6 +66,10 @@ CONFIGS = {
     "EV-GDF-PN-S0": dict(backbone="ev"),
     "PF-GDF-PN-S0": dict(backbone="pf"),
     "EF-GDF-PN-L": dict(backbone="ef", phi="L"),
+    # the reparameterizable backbones, trained in their train form
+    "RV-GDF-PN-S0": dict(backbone="rv"),
+    "MO-RDF-PN-S0": dict(backbone="mo", neck="rdf"),
+    "FV-RDF-PN-S0": dict(backbone="fv", neck="rdf"),
 }
 # the deepest of MobileViT-S1's three transformers (4 layers); each
 # block's eager JAX draws compile per shape
