@@ -10,8 +10,8 @@ documented semantics, as in JAX.
   python -m achelous_tpu_torch.predict_cli --mode predict --image img.jpg \\
       --radar_csv r.csv --ckpt logs/ckpt/best_epoch_weights
 
-Runs on the GPU unless `--device cpu`; bf16, as the JAX CLI, unless
-`--bf16 false`.  `--weights` reads a `weights.save_weights` file, `--ckpt`
+Runs on the GPU unless `--device cpu`; bf16, as the JAX CLI.  `--weights`
+reads a `weights.save_weights` file, `--ckpt`
 a `train/checkpoints` checkpoint, whose EMA parameters and statistics it
 serves; with `--deploy` they are folded first (in float32), so a trained
 RV-, MO- or FV- checkpoint is served in its deploy form:
@@ -31,7 +31,7 @@ import os
 
 from achelous_tpu_torch.core.config import (BACKBONES, NECKS, PC_MODELS,
                                             WIDTHS)
-from achelous_tpu_torch.train.cli import parse_band, str2bool
+from achelous_tpu_torch.train.cli import parse_band
 
 
 def build_parser():
@@ -68,9 +68,6 @@ def build_parser():
                         "into single convs before serving")
     p.add_argument("--device", default="cuda",
                    help="torch device to serve on (default: the GPU)")
-    p.add_argument("--bf16", type=str2bool, default=True,
-                   help="serve in bf16 (the default, as the JAX CLI); "
-                        "false serves in float32")
     p.add_argument("--out", default="export_results")
     # video mode (reference predict.py:33-44)
     p.add_argument("--video", default="", help="input video path")
@@ -86,7 +83,9 @@ def build_parser():
     return p
 
 
-def load_predictor(args):
+def load_predictor(args, dtype=None):
+    """The predictor of `args`, computing in `dtype` (bf16, as the JAX CLI,
+    where None)."""
     import torch
 
     from achelous_tpu_torch.core.config import AchelousConfig
@@ -95,8 +94,7 @@ def load_predictor(args):
     cfg_kw = {} if band == "auto" else {"deform_band": band}
     cfg = AchelousConfig(backbone=args.backbone, neck=args.neck, phi=args.phi,
                          pc_model=args.pc_model, resolution=args.resolution,
-                         dtype=torch.bfloat16 if args.bf16 else torch.float32,
-                         **cfg_kw)
+                         dtype=dtype or torch.bfloat16, **cfg_kw)
     kw = dict(confidence=args.confidence, nms_iou=args.nms_iou,
               deploy=args.deploy, device=args.device)
     if args.weights:

@@ -45,11 +45,13 @@ parameters), in three phases:
     T7  the reparameterizable RV-GDF-PN-S0, MO-RDF-PN-S0 and FV-RDF-PN-S0
         in their train form as T6 trains them; each trained EMA folded
         in float32 on the card and held against the train form's eval
-        output (TF32 off, DEPLOY_TOL of each output's scale), then
-        served at batch 1 in bf16 through entry() and decode + NMS in
-        both forms (kernels a frame and ms a frame of each; the deploy
-        form's outputs before decode against float32 plain on the CPU,
-        every launch held against the plain version); one float32 step
+        output (TF32 off, DEPLOY_TOL of each output's scale) and
+        against itself in float32 on the CPU, then served at batch 1 in
+        bf16 through entry() and decode + NMS in both forms (kernels a
+        frame and ms a frame of each; the outputs before decode against
+        float32 plain on the CPU, held on RV and FV, logged beside their
+        bf16 spread on MO; every deploy launch held against the plain
+        version); one float32 step
         of MO-RDF-PN-S0 at batch 8 on the card against the CPU (with
         float32's spread where 1e-3 does not hold); `train.cli.main` for
         one epoch of MO-RDF-PN-S0 on a tree like F1's, then
@@ -259,22 +261,29 @@ T6_PATHS = (
 )
 T6_STEPS = 2
 # T7: the reparameterizable configurations, trained in their train form
-# as T6 trains, then each trained EMA folded and served in its deploy form
+# as T6 trains, then each trained EMA folded and served in its deploy
+# form: (label, AchelousConfig fields, launches a step, whether the served
+# bf16 outputs are held within MAIN_PATH_TOL of float32 plain).  A few
+# steps leave MobileOne-S0's running statistics near (0, 1): its
+# eval-mode maps grow ~2x a block to ~1e8, where bf16 keeps few of their
+# digits, and its bf16 outputs move with the EMA (which the card's
+# non-deterministic backward changes from run to run) from 0.025 to 0.451
+# of det2's scale.  Its bf16 outputs are logged beside their spread;
+# every form is held in float32 instead (FLOAT32_PATH_TOL).
 T7_PATHS = (
-    ("RV-GDF-PN-S0", dict(backbone="rv"), TRAIN_LAUNCHES),
-    ("MO-RDF-PN-S0", dict(backbone="mo", neck="rdf"), TRAIN_LAUNCHES),
-    ("FV-RDF-PN-S0", dict(backbone="fv", neck="rdf"), TRAIN_LAUNCHES),
+    ("RV-GDF-PN-S0", dict(backbone="rv"), TRAIN_LAUNCHES, True),
+    ("MO-RDF-PN-S0", dict(backbone="mo", neck="rdf"), TRAIN_LAUNCHES,
+     False),
+    ("FV-RDF-PN-S0", dict(backbone="fv", neck="rdf"), TRAIN_LAUNCHES, True),
 )
-# decode takes exp of the box sizes: where a detection map passes
-# EXP_SAFE the exp overflows and the boxes are not finite, as they are on
-# a few steps' EMA of MobileOne-S0, whose eval-mode maps grow ~2x a block
-# (its running statistics barely moved off (0, 1)) to ~1e8; its outputs
-# are held before decode, relative to their scale
-EXP_SAFE = 80.0
 OUTPUT_NAMES = ("det0", "det1", "det2", "sem", "lane", "pc")
 # one bf16 step: the requests scaled by 1 +- BF16_NUDGE read how far a
 # state amplifies bf16's rounding
 BF16_NUDGE = 2.0 ** -8
+# T7: a trained EMA's deploy form in float32 on the card (TF32 off)
+# against itself in float32 on the CPU (the plain versions), relative to
+# each output's scale: both float32, summed in other orders
+FLOAT32_PATH_TOL = 1e-3
 # F1: the tree (frames of 480x270, a quarter of WaterScenes' 1920x1080
 # camera), its batch, epochs
 FIT_TRAIN, FIT_VAL, FIT_SIZE, FIT_BATCH, FIT_EPOCHS = 16, 8, (480, 270), 8, 2
@@ -857,14 +866,13 @@ def check_on_path(label, records):
             for (n, d), e in sorted(worst.items(), key=str)))
 
 
-def serve_path(dev, label, want_rose, records=None, n=REQUESTS,
-               limits=None, worst=None, **path):
-    """Phase 4, C1 and C2: serve `n` requests through entry(**path) on
+def serve_path(dev, label, want_rose, records=None, n=REQUESTS, held=True,
+               **path):
+    """Phase 4, C1, C2 and T7: serve `n` requests through entry(**path) on
     one path (its config's name leads `label`), with the launch counts
     set to 0 just before and read just after; check the outputs against
-    float32 plain on the CPU, each within MAIN_PATH_TOL of its scale or
-    within `limits[name]` where given; a dict `worst` receives each
-    output's error.  With `records`, the kernels' launch sites keep the
+    float32 plain on the CPU (unless `held` is false, then only log
+    them).  With `records`, the kernels' launch sites keep the
     inputs of every launch there (`on_path_inputs`).  Without a
     `state_dict` in `path`, the seed-0 weights get their offset convs and
     layer scales drawn (`perturb_deform_convs`, `perturb_attention`)."""
@@ -913,8 +921,7 @@ def serve_path(dev, label, want_rose, records=None, n=REQUESTS,
         f"a request {want_rose}")
 
     r, k = cfg.resolution, cfg.num_det
-    worst = {} if worst is None else worst
-    limits = limits or {}
+    worst = {}
     with torch.inference_mode():
         for q, dq, (dets, sem, lane, *pc) in zip(reqs, dev_reqs, outs):
             det = model.det_head(model.image_radar_encoder(*dq[:2])[0])
@@ -937,8 +944,7 @@ def serve_path(dev, label, want_rose, records=None, n=REQUESTS,
                     raise AssertionError(f"det[{lvl}] shape {tuple(g.shape)},"
                                          f" want {s}")
             if dets.boxes.shape != (1, 100, 4) or not bool(
-                    torch.isfinite(dets.boxes).all()) and max(
-                    float(g.abs().max()) for g in det) < EXP_SAFE:
+                    torch.isfinite(dets.boxes).all()):
                 raise AssertionError("detections: bad shape or non-finite")
             pairs = [(name, got[name], want[name]) for name in shapes]
             pairs += [(f"det{i}", g, w) for i, (g, w) in
@@ -952,11 +958,9 @@ def serve_path(dev, label, want_rose, records=None, n=REQUESTS,
                 worst[name] = max(worst.get(name, 0.0), e)
     log(f"main path {label} vs float32 plain (max err / max(1, max|ref|)): "
         + ", ".join(f"{n} {e:.3g}" for n, e in worst.items()))
-    bad = {n: e for n, e in worst.items()
-           if e > limits.get(n, MAIN_PATH_TOL)}
-    if bad:
-        raise AssertionError(f"{label} outside {MAIN_PATH_TOL} (or "
-                             f"{limits}): {bad}")
+    bad = {n: e for n, e in worst.items() if e > MAIN_PATH_TOL}
+    if held and bad:
+        raise AssertionError(f"{label} outside {MAIN_PATH_TOL}: {bad}")
     if pn2:
         for h in hooks + ref_hooks:
             h.remove()
@@ -1678,21 +1682,24 @@ def train_reparameterizable(dev):
     """T7: RV-GDF-PN-S0, MO-RDF-PN-S0 and FV-RDF-PN-S0 trained in their
     train form as T6 trains (`train_path`: a warm-up and a timed step at
     batch 32, bf16), each trained EMA then folded in float32 on the card
-    and held against the train form's eval output (`deploy_against_train`)
-    and served in its deploy form (`serve_trained`); one float32 step of
+    and held against the train form's eval output and against itself on
+    the CPU (`deploy_against_train`), and served in both forms
+    (`serve_trained`); one float32 step of
     MO-RDF-PN-S0 at batch STEP_BATCH on the card against the CPU; the
     entry path once (`cli_path`).  Returns the kernels' launches."""
     from achelous_tpu_torch.core.config import AchelousConfig
     totals, ms = {}, {}
-    for label, fields, want in T7_PATHS:
+    for label, fields, want, held in T7_PATHS:
         cfg = AchelousConfig(resolution=TRAIN_RES, dtype=torch.bfloat16,
                              **fields)
         ema = {}
         ms[label], counts = train_path(dev, "T7", label, cfg, want,
                                        T6_STEPS, ema=ema)
         add_counts(totals, counts)
-        deploy_against_train(dev, f"T7 {label} trained EMA", cfg, ema)
-        add_counts(totals, serve_trained(dev, label, fields, want, ema))
+        deploy_against_train(dev, f"T7 {label} trained EMA", cfg, ema,
+                             cpu_tol=FLOAT32_PATH_TOL)
+        add_counts(totals, serve_trained(dev, label, fields, want, ema,
+                                         held))
         torch.cuda.empty_cache()
     log("T7 ms a step at bs 32: " + ", ".join(
         f"{k} {v:.2f}" for k, v in ms.items()))
@@ -1727,40 +1734,32 @@ def bf16_spread(model, cfg, dev):
     return spread
 
 
-def serve_trained(dev, label, fields, want, ema):
+def serve_trained(dev, label, fields, want, ema, held):
     """T7: a trained EMA served through entry() at batch 1, bf16, through
     decode + NMS, in its train form and in its deploy form:
     DEPLOY_REQUESTS requests each, each one's launches held to `want` and
     (deploy form) every launch's inputs against the plain version, the
     outputs before decode against float32 plain on the CPU relative to
-    their scale (`serve_path`; the train form's logged).  The deploy
-    form's outputs are held within MAIN_PATH_TOL, or STEP_FLOOR times
-    their bf16 spread (`bf16_spread`) where that is larger: a few steps'
-    EMA of MobileOne-S0 grows its eval maps to ~1e8, where bf16 keeps few
-    of a det map's digits.  Then ms and kernels a frame of both forms.
-    Returns the deploy form's launches."""
-    never = {n: float("inf") for n in OUTPUT_NAMES}
+    their scale, held within MAIN_PATH_TOL where `held` (`serve_path`);
+    the deploy form's bf16 spread logged (`bf16_spread`).  Then ms and
+    kernels a frame of both forms.  Returns the deploy form's
+    launches."""
     _, model, fn = serve_path(dev, f"{label} train form", want,
-                              n=DEPLOY_REQUESTS, limits=never,
-                              state_dict=ema, **fields)
+                              n=DEPLOY_REQUESTS, held=held, state_dict=ema,
+                              **fields)
     q = tuple(torch.rand(s, device=dev).to(fn.cfg.dtype) for s in
               ((1, 3, 320, 320), (1, 3, 320, 320), (1, 512, 5)))
     forms = {"train": time_path(f"T7 {label} train form", model, fn, q)}
     del model, fn
-    worst, records = {}, []
+    records = []
     counts, model, fn = serve_path(dev, f"{label} deploy", want, records,
-                                   n=DEPLOY_REQUESTS, limits=never,
-                                   worst=worst, state_dict=ema, deploy=True,
-                                   **fields)
+                                   n=DEPLOY_REQUESTS, held=held,
+                                   state_dict=ema, deploy=True, **fields)
     check_on_path(f"T7 {label} deploy", records)
     spread = bf16_spread(model, fn.cfg, dev)
-    limits = {n: max(MAIN_PATH_TOL, STEP_FLOOR * spread[n]) for n in worst}
     log(f"T7 {label} deploy bf16 against itself on the requests scaled by "
         f"1 +- {BF16_NUDGE:g}: " + ", ".join(f"{n} {e:.3g}"
                                             for n, e in spread.items()))
-    bad = {n: e for n, e in worst.items() if e > limits[n]}
-    if bad:
-        raise AssertionError(f"T7 {label} deploy outside {limits}: {bad}")
     forms["deploy"] = time_path(f"T7 {label} deploy", model, fn, q)
     log(f"T7 {label} trained EMA served bf16 bs1: train form "
         f"{forms['train'][1]:.0f} kernels/frame, {forms['train'][0]:.3f} "
@@ -2316,12 +2315,14 @@ def c2_weights(cfg):
     return {k: v.clone() for k, v in model.state_dict().items()}
 
 
-def deploy_against_train(dev, label, cfg, weights):
+def deploy_against_train(dev, label, cfg, weights, cpu_tol=None):
     """The deploy form against its own train form on the same weights,
     both float32 on the card with TF32 off: DEPLOY_REQUESTS requests, each
     output within DEPLOY_TOL of the train form's scale; their kernel
     launches a request equal; kernels a frame of each under the
-    profiler."""
+    profiler.  With `cpu_tol`, the deploy form's outputs on the card also
+    within `cpu_tol` of its float32 outputs on the CPU (the plain
+    versions)."""
     from achelous_tpu_torch.entry import make_fn
     from achelous_tpu_torch.models.achelous import create_model
     from achelous_tpu_torch.trace_serving import profile_frames
@@ -2336,7 +2337,9 @@ def deploy_against_train(dev, label, cfg, weights):
            for form in ("train", "deploy")}
     reqs = [tuple(t.to(dev) for t in q)
             for q in requests(cfg32, DEPLOY_REQUESTS, seed=200)]
-    worst, counts, kernels = {}, {}, {}
+    worst, counts, kernels, on_cpu = {}, {}, {}, {}
+    cpu_model = (None if cpu_tol is None else
+                 copy.deepcopy(fns["deploy"].model).cpu())
     with torch.inference_mode():
         for q in reqs:
             outs = {}
@@ -2345,11 +2348,19 @@ def deploy_against_train(dev, label, cfg, weights):
                 outs[form], counts[form] = counted(
                     lambda: m(*q))
             (tdet, *trest), (ddet, *drest) = outs["train"], outs["deploy"]
-            for name, t, d in zip(("det0", "det1", "det2", "sem", "lane",
-                                   "pc"), (*tdet, *trest), (*ddet, *drest)):
+            for name, t, d in zip(OUTPUT_NAMES, (*tdet, *trest),
+                                  (*ddet, *drest)):
                 e = ((d - t).abs().max() / max(1.0, t.abs().max().item())
                      ).item()
                 worst[name] = max(worst.get(name, 0.0), e)
+            if cpu_model is None:
+                continue
+            cdet, *crest = cpu_model(*(t.cpu() for t in q))
+            for name, c, d in zip(OUTPUT_NAMES, (*cdet, *crest),
+                                  (*ddet, *drest)):
+                e = ((d.cpu() - c).abs().max()
+                     / max(1.0, c.abs().max().item())).item()
+                on_cpu[name] = max(on_cpu.get(name, 0.0), e)
     for form, fn in fns.items():
         kernels[form] = profile_frames(fn, reqs[0], frames=3)[2]
     (torch.backends.cuda.matmul.allow_tf32,
@@ -2366,6 +2377,14 @@ def deploy_against_train(dev, label, cfg, weights):
     if bad:
         raise AssertionError(f"{label} deploy form outside {DEPLOY_TOL}: "
                              f"{bad}")
+    if cpu_model is not None:
+        log(f"{label} float32 deploy form on the card vs the CPU (max err /"
+            f" max(1, max|CPU|)): " + ", ".join(f"{n} {e:.3g}"
+                                                for n, e in on_cpu.items()))
+        bad = {n: e for n, e in on_cpu.items() if e > cpu_tol}
+        if bad:
+            raise AssertionError(f"{label} deploy form on the card outside "
+                                 f"{cpu_tol} of the CPU: {bad}")
 
 
 def c2_phase(dev):

@@ -706,16 +706,19 @@ def test_t7_trained_ema_folds_on_the_card(cuda_device, label):
     """chip_smoke.py T7 at batch 2: one bf16 step of the train form (K1
     x4, K2 x4, each launch held against the plain version), its EMA
     folded in float32 on the card and held against the train form's eval
-    output within DEPLOY_TOL of each output's scale."""
+    output within DEPLOY_TOL of each output's scale, and against itself
+    on the CPU within FLOAT32_PATH_TOL."""
     from achelous_tpu_torch.core.config import AchelousConfig
-    from chip_smoke import T7_PATHS, deploy_against_train, train_path
-    fields, want = {k: (f, w) for k, f, w in T7_PATHS}[label]
+    from chip_smoke import (FLOAT32_PATH_TOL, T7_PATHS, deploy_against_train,
+                            train_path)
+    fields, want = {k: (f, w) for k, f, w, _ in T7_PATHS}[label]
     cfg = AchelousConfig(dtype=torch.bfloat16, **fields)
     ema = {}
     _, counts = train_path(cuda_device, "T7", label, cfg, want, 1, batch=2,
                            ema=ema)
     assert counts == want
-    deploy_against_train(cuda_device, f"T7 {label}", cfg, ema)
+    deploy_against_train(cuda_device, f"T7 {label}", cfg, ema,
+                         cpu_tol=FLOAT32_PATH_TOL)
 
 
 def test_radar_splat_on_the_card_equals_the_cpu(cuda_device):

@@ -85,8 +85,8 @@ PERTURB = (lambda k, v: v * (1 + 1e-6) if k in INPUTS else v,
 # by +2e-5 moves that offset conv's update by 6.23e-5, the port's whole
 # difference from JAX's (and by -2e-5, 5.2e-7)
 OFFSET_NUDGE = 2e-5
-# For the reparameterizable configurations, also every normalisation's
-# bias (BatchNorm, GroupNorm, LayerNorm: each flax leaf "bias" beside a
+# For RV-GDF-PN-S0 (NORM_NUDGED), also every normalisation's bias
+# (BatchNorm, GroupNorm, LayerNorm: each flax leaf "bias" beside a
 # "scale") moved by +- NORM_NUDGE on both sides, which moves every ReLU
 # input behind a norm by that much.  Their train-mode forwards differ
 # between the packages by up to ~1e-4 at O(1) pre-activations (RepViT's
@@ -97,8 +97,9 @@ OFFSET_NUDGE = 2e-5
 # and on the other side of it in JAX's forward, and flipping that one
 # element's sign in the port's step brings every tensor inside the gate
 # (det_head.cls_convs.1.0: its pointwise weight's update 1.53x the gate
-# before)
+# before).  MO-RDF-PN-S0 and FV-RDF-PN-S0 pass their gates without it.
 NORM_NUDGE = 1e-4
+NORM_NUDGED = ("RV-GDF-PN-S0",)
 # configuration -> the faults planted in its families (backbone, neck)
 FAULTS = {"EN-GDF-PN-S1": ("no_weight_decay",),
           "EN-GDF-PN-S2": ("no_weight_decay",),
@@ -300,7 +301,7 @@ def run_config(name):
         (jax_state(nudge_offsets(variables, d), tcfg_j), same)
         for d in (OFFSET_NUDGE, -OFFSET_NUDGE)]
     served_cases = len(cases)
-    if name in DEPLOY:
+    if name in NORM_NUDGED:
         cases += [(jax_state(nudge_norms(variables, d), tcfg_j), same)
                   for d in (NORM_NUDGE, -NORM_NUDGE)]
     runs, ends = [], []

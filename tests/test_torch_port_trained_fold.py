@@ -7,7 +7,7 @@ CLI (`train.cli.main`) trains one epoch (one step at batch 2) on a tiny
 WaterScenes tree (`data/example.write_tree`) and writes its checkpoint;
 then the predictor CLI's `load_predictor` reads the checkpoint's EMA
 (parameters and the BatchNorm statistics the step moved) with and
-without `--deploy`, `--bf16 false`.  On one of the tree's frames, prepared
+without `--deploy`, in float32.  On one of the tree's frames, prepared
 by the predictor (letterbox, the radar CSV splatted, the points
 resampled):
 
@@ -20,8 +20,8 @@ resampled):
     `achelous_mapping`) and served by JAX's `AchelousPredictor(cfg,
     variables, deploy=True)`: the same outputs within SLICE_REL of each
     output's scale;
-  * `predict_cli.main` in predict mode with `--ckpt --deploy` writes the
-    frame's summary, masks and rendering.
+  * `predict_cli.main` in predict mode with `--ckpt --deploy` (bf16, as
+    the CLI serves) writes the frame's summary, masks and rendering.
 
 One step leaves each BatchNorm's running statistics at 0.9 x (0, 1) +
 0.1 x the batch's, which in eval mode barely normalise MobileOne-S0's six
@@ -91,13 +91,14 @@ def trained(request, tree, tmp_path_factory):
          "5", "--save_period", "5", "--log_dir", log_dir])
     assert state.step == 1
     argv = ["--backbone", backbone, "--neck", neck, "--device", "cpu",
-            "--bf16", "false", "--resolution", str(RES), "--confidence",
+            "--resolution", str(RES), "--confidence",
             str(CONF), "--ckpt",
             os.path.join(log_dir, "ckpt", "last_epoch_weights")]
 
     def load(*extra):
         return predict_cli.load_predictor(
-            predict_cli.build_parser().parse_args(argv + list(extra)))
+            predict_cli.build_parser().parse_args(argv + list(extra)),
+            torch.float32)
 
     train_form, deploy = load(), load("--deploy")
     image = os.path.join(tree, "images", FRAME + ".jpg")
@@ -159,7 +160,7 @@ def test_deploy_form_matches_jax_predictor(trained):
 
 
 def test_cli_predicts_with_the_folded_ema(trained, tmp_path):
-    """predict_cli.main, predict mode, --ckpt --deploy: the frame's
+    """predict_cli.main, predict mode, --ckpt --deploy, bf16: the frame's
     summary, masks and rendering."""
     out = str(tmp_path / "out")
     summary = predict_cli.main(trained["argv"] + [
